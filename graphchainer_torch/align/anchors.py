@@ -1,0 +1,342 @@
+"""Fragment jobs, bands and the fragment DP run (CLC fragment stage).
+
+JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
+(GraphTensors, JobCols, assemble_batch_cols, pack_row_planes,
+level_bucket, _warn_truncated) plus `run_fragments`, which uploads the
+node tables once and runs ops/frag_align.align_fragments_tl over a whole
+batch on the model's device.
+
+Each fragment with a seed at read row r0 and graph position (v, o) is two
+jobs: forward rows read[r0:end) from node v trimmed to start at offset o,
+and backward rows reversed(read[start:r0)) on the edge-reversed graph
+(reversed node sequences, ids offset by N).
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from graphchainer_tpu import native
+from graphchainer_tpu.constants import MAX_IN_DEGREE
+from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
+from graphchainer_tpu.utils import timers
+from graphchainer_tpu.utils.bits import reverse_eq_planes
+from graphchainer_torch.ops import frag_align
+from graphchainer_torch.ops.myers import to_i32_bits
+
+W = 32
+
+
+@dataclass
+class GraphTensors:
+    """Host tables derived from the AlignmentGraph once, plus the node
+    Eq/length tables resident on a torch device (copy of
+    graphchainer_tpu.align.anchors.GraphTensors; the native glue reads
+    the attributes g, di_base, in_ptr, in_idx, out_ptr, out_idx,
+    node_len64, orig_offset64, seq_bytes and split_lookup).
+
+    The device tables are the forward table concatenated with the
+    reversed-sequence table: backward jobs address reversed nodes as
+    id + N."""
+    g: AlignmentGraph
+    node_eq_rev: np.ndarray      # uint32 [N,4] reversed-sequence planes
+    node_eq_cat: np.ndarray      # uint32 [2N,4] fwd ++ reversed
+    node_len_cat: np.ndarray     # int32 [2N]
+    out_ptr: np.ndarray
+    out_idx: np.ndarray
+    in_ptr: np.ndarray
+    in_idx: np.ndarray
+    node_len64: np.ndarray
+    seq_bytes: np.ndarray = None   # uint8 concat of all digraph sequences
+    di_base: np.ndarray = None     # int64 [n_di+1] offsets into seq_bytes
+    _dev: dict = field(default_factory=dict, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False)
+
+    @staticmethod
+    def build(g: AlignmentGraph) -> "GraphTensors":
+        rev = reverse_eq_planes(g.node_eq, g.node_len)
+        seq_bytes = np.frombuffer(
+            "".join(g.di_seqs).encode("ascii"), dtype=np.uint8)
+        di_base = np.zeros(len(g.di_seqs) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in g.di_seqs], out=di_base[1:])
+        return GraphTensors.from_numpy(
+            g, node_eq_cat=np.concatenate([g.node_eq, rev], axis=0),
+            node_len_cat=np.concatenate([g.node_len, g.node_len]),
+            out_ptr=g.out_ptr, out_idx=g.out_idx, in_ptr=g.in_ptr,
+            in_idx=g.in_idx, seq_bytes=seq_bytes, di_base=di_base)
+
+    @staticmethod
+    def from_numpy(g: AlignmentGraph, node_eq_cat, node_len_cat, out_ptr,
+                   out_idx, in_ptr, in_idx, seq_bytes,
+                   di_base) -> "GraphTensors":
+        """Build from the numpy fields of an existing table set (e.g. the
+        JAX package's GraphTensors), so both packages compute on
+        identical tables."""
+        n = g.n_nodes
+        node_eq_cat = np.ascontiguousarray(node_eq_cat, dtype=np.uint32)
+        return GraphTensors(
+            g=g, node_eq_rev=node_eq_cat[n:], node_eq_cat=node_eq_cat,
+            node_len_cat=np.ascontiguousarray(node_len_cat, dtype=np.int32),
+            out_ptr=np.ascontiguousarray(out_ptr, dtype=np.int64),
+            out_idx=np.ascontiguousarray(out_idx, dtype=np.int64),
+            in_ptr=np.ascontiguousarray(in_ptr, dtype=np.int64),
+            in_idx=np.ascontiguousarray(in_idx, dtype=np.int64),
+            node_len64=np.ascontiguousarray(g.node_len, dtype=np.int64),
+            seq_bytes=np.ascontiguousarray(seq_bytes, dtype=np.uint8),
+            di_base=np.ascontiguousarray(di_base, dtype=np.int64))
+
+    def split_lookup(self):
+        """(sorted keys, split ids) for the global (digraph node, offset)
+        -> split-node binary search.  Keys and values are built together
+        and published as one tuple, so a concurrent reader never sees a
+        half-built lookup."""
+        got = self.__dict__.get("_split")
+        if got is None:
+            g = self.g
+            # di_splits is grouped by digraph node (ascending) with
+            # ascending offsets inside: keys are globally sorted
+            splits = g.di_splits.astype(np.int64)
+            owner_di = np.repeat(np.arange(g.n_digraph, dtype=np.int64),
+                                 np.diff(g.di_ptr))
+            keys = np.ascontiguousarray(
+                (owner_di << 33) | g.orig_offset[splits].astype(np.int64))
+            got = (keys, np.ascontiguousarray(splits))
+            self.__dict__["_split"] = got
+        return got
+
+    @property
+    def orig_offset64(self) -> np.ndarray:
+        got = self.__dict__.get("_orig_offset64")
+        if got is None:
+            got = np.ascontiguousarray(self.g.orig_offset, dtype=np.int64)
+            self.__dict__["_orig_offset64"] = got
+        return got
+
+    def positions_seq(self, positions) -> str:
+        """Path sequence of (node, offset) rows."""
+        if len(positions) == 0:
+            return ""
+        arr = np.asarray(positions, dtype=np.int64)
+        g = self.g
+        nodes, offs = arr[:, 0], arr[:, 1]
+        idx = (self.di_base[g.orig_node[nodes].astype(np.int64)]
+               + g.orig_offset[nodes] + offs)
+        return self.seq_bytes[idx].tobytes().decode("ascii")
+
+    def device_tables(self, device):
+        """(node_eq, node_len) resident on `device`, uploaded once per
+        device: Eq words as int64 on the CPU, as uint32 bits in int32 on
+        a CUDA device (half the bytes)."""
+        dev = torch.device(device)
+        with self._lock:
+            got = self._dev.get(dev)
+            if got is None:
+                eq = torch.as_tensor(self.node_eq_cat.astype(np.int64))
+                if dev.type == "cuda":
+                    eq = to_i32_bits(eq)
+                got = (eq.to(dev),
+                       torch.as_tensor(self.node_len_cat).to(dev))
+                self._dev[dev] = got
+            return got
+
+
+@dataclass
+class JobCols:
+    """Columnar fragment-job batch."""
+    seed: np.ndarray      # (F,) int64 split-node id (slot 0 of the band)
+    trim: np.ndarray      # (F,) int64 seed_trim_len
+    rev: np.ndarray       # (F,) bool backward-extension job
+    read_idx: np.ndarray  # (F,) int64 read of the batch
+    lo: np.ndarray        # (F,) int64 read row range [lo, hi)
+    hi: np.ndarray        # (F,) int64 (rev jobs consume rows hi-1 .. lo)
+
+    def __len__(self):
+        return len(self.seed)
+
+
+def assemble_batch_cols(gx: GraphTensors, jc: JobCols, read_mm_cat:
+                        np.ndarray, read_base: np.ndarray, B: int,
+                        max_in: int = MAX_IN_DEGREE, slack: int = 8):
+    """Band + read-plane tensors for a columnar job batch.
+
+    Returns (band_nodes [F,B] int64 original split ids, band_nodes_cat
+    [F,B] int32 ids into the fwd ++ rev tables, band_in [F,B,max_in] int8,
+    seed_shift [F] int32, req [F,S,4] uint32, rows [F] int32, S,
+    band_level [F,B] int8).  B shrinks to the batch's widest band rounded
+    up to a multiple of 8."""
+    g = gx.g
+    if B > 127:
+        raise ValueError(
+            f"band slots B={B} exceeds 127: the CLC band is int8-indexed "
+            "(native backwalks); use -b/-B <= 127")
+    F = len(jc)
+    rows = np.maximum(jc.hi - jc.lo, 1).astype(np.int32)
+    S = int(max(1, -(-int(rows.max(initial=1)) // W)))
+
+    band_nodes = np.full((F, B), -1, dtype=np.int64)
+    band_in = np.full((F, B, max_in), -1, dtype=np.int64)
+    band_level = np.full((F, B), -1, dtype=np.int64)
+    for rev in (False, True):
+        sel = np.nonzero(jc.rev == rev)[0]
+        if not len(sel):
+            continue
+        max_bp = int(rows[sel].max()) + slack
+        ptr, idx = (gx.in_ptr, gx.in_idx) if rev else (gx.out_ptr,
+                                                      gx.out_idx)
+        bn, bi, bl, trunc = native.band_build(
+            g.n_nodes, ptr, idx, gx.node_len64,
+            np.ascontiguousarray(jc.seed[sel]),
+            np.ascontiguousarray(jc.trim[sel]), B, max_bp, max_in, rev,
+            by_dist=g.cyclic)
+        if trunc:
+            _warn_truncated(trunc, max_in)
+        band_nodes[sel] = bn
+        band_in[sel] = bi
+        band_level[sel] = bl
+
+    # adaptive band width: bands rarely fill all B slots; in-band in-edges
+    # always reference earlier slots, so trimming the tail is safe
+    used = int((band_nodes >= 0).sum(axis=1).max()) if F else 1
+    B_eff = min(B, max(8, -(-used // 8) * 8))
+    if B_eff < B:
+        band_nodes = band_nodes[:, :B_eff]
+        band_in = band_in[:, :B_eff]
+        band_level = band_level[:, :B_eff]
+
+    band_nodes_cat = np.where(
+        band_nodes >= 0,
+        band_nodes + np.where(jc.rev, g.n_nodes, 0)[:, None],
+        -1).astype(np.int32)
+
+    seed_len = g.node_len[np.clip(band_nodes[:, 0], 0,
+                                  g.n_nodes - 1)].astype(np.int64)
+    seed_shift = (seed_len - jc.trim).astype(np.int32)
+
+    # read-row match planes: one gather over the concatenated batch masks
+    ar = np.arange(S * W, dtype=np.int64)[None, :]
+    base = read_base[jc.read_idx][:, None]
+    idx_f = base + jc.lo[:, None] + ar
+    idx_b = base + jc.hi[:, None] - 1 - ar
+    idx = np.where(jc.rev[:, None], idx_b, idx_f)
+    in_range = ar < rows[:, None]
+    mm_pad = np.where(in_range,
+                      read_mm_cat[np.clip(idx, 0, len(read_mm_cat) - 1)],
+                      0).astype(np.uint8)
+    req = pack_row_planes(mm_pad).reshape(F, S, 4)
+
+    return (band_nodes, band_nodes_cat, band_in.astype(np.int8),
+            seed_shift, req, rows, S, band_level.astype(np.int8))
+
+
+_trunc_warned = False
+
+
+def _warn_truncated(n: int, max_in: int):
+    """One-shot warning when band in-edge lists hit the max_in cap (the
+    DP then overestimates scores on those slots); every call also feeds
+    the `band_truncated_in_edges` counter."""
+    global _trunc_warned
+    timers.count("band_truncated_in_edges", int(n))
+    if not _trunc_warned:
+        print(f"WARNING: {n} in-band in-edges dropped by the "
+              f"max_in={max_in} cap; DP scores may overestimate on "
+              "dense-graph slots (further warnings suppressed)",
+              file=sys.stderr)
+        _trunc_warned = True
+
+
+def pack_row_planes(mm: np.ndarray) -> np.ndarray:
+    """(..., S*32) uint8 match masks -> (..., S, 4) uint32 planes (bit i
+    of plane b = row 32s+i matches b)."""
+    lead = mm.shape[:-1]
+    S = mm.shape[-1] // W
+    m = mm.reshape(*lead, S, W).astype(np.uint32)
+    weights = (np.uint32(1) << np.arange(W, dtype=np.uint32))
+    planes = np.zeros((*lead, S, 4), dtype=np.uint32)
+    for b in range(4):
+        planes[..., b] = (((m >> np.uint32(b)) & 1) * weights).sum(
+            axis=-1, dtype=np.uint32)
+    return planes
+
+
+def level_bucket(band_level: np.ndarray, B: int) -> int:
+    """Level-loop trip count: next power of two >= max level + 1, at
+    least 4, at most B (the reference's value)."""
+    max_l = int(band_level.max(initial=0)) + 1
+    n = 4
+    while n < max_l:
+        n *= 2
+    return min(n, B)
+
+
+def code0_padding(band_nodes_cat: np.ndarray, band_in: np.ndarray,
+                  req: np.ndarray, rows: np.ndarray, max_in: int) -> bool:
+    """Whether the reference would run this batch in its 2-bit read-code
+    format (graphchainer_tpu.align.anchors._try_pack_frag accepts it).
+
+    That format stores rows past a fragment's end as base code 0, so those
+    rows match A, while the plane format leaves them matching nothing.
+    They lie below the fragment's end row, yet the winning candidate of a
+    slot (best_in) is chosen on the bottom row of the slice, so they can
+    change the backwalk; the port reproduces them to give the same
+    anchors."""
+    F, B = band_nodes_cat.shape
+    if B > 16 or band_in.shape[2] > 4 or max_in > 4 or F == 0:
+        return False
+    if (B * req.shape[1]) % 4:
+        return False
+    pad = band_nodes_cat < 0
+    base = np.where(pad[:, 0], 0, band_nodes_cat[:, 0]).astype(np.int64)
+    d = band_nodes_cat.astype(np.int64) - base[:, None]
+    if ((~pad) & ((d > 32767) | (d < -32767))).any():
+        return False
+    p = req.astype(np.uint32)
+    p0, p1, p2, p3 = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+    multi = ((p0 & p1) | (p0 & p2) | (p0 & p3) | (p1 & p2) | (p1 & p3)
+             | (p2 & p3))
+    cover = p0 | p1 | p2 | p3
+    S = p.shape[1]
+    ns = np.clip(rows[:, None].astype(np.int64)
+                 - W * np.arange(S, dtype=np.int64)[None, :], 0, W)
+    need = ((np.uint64(1) << ns.astype(np.uint64)) - 1).astype(np.uint32)
+    return not ((multi != 0).any() or ((cover & need) != need).any())
+
+
+def pad_rows_code0(req: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """req with every row at or past the fragment end matching A."""
+    S = req.shape[1]
+    ns = np.clip(rows[:, None].astype(np.int64)
+                 - W * np.arange(S, dtype=np.int64)[None, :], 0, W)
+    need = ((np.uint64(1) << ns.astype(np.uint64)) - 1).astype(np.uint32)
+    out = req.copy()
+    out[..., 0] |= ~need
+    return out
+
+
+def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
+                  band_in: np.ndarray, seed_shift: np.ndarray,
+                  req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
+                  band_level: np.ndarray, device) -> frag_align.FragResult:
+    """The fragment DP over a whole batch on `device` (one call: no
+    chunking, wire packing or band cache).  Returns a numpy FragResult
+    whose best_in is int8 (F, B, S)."""
+    dev_eq, dev_len = gx.device_tables(device)
+    B = band_nodes_cat.shape[1]
+    n_levels = level_bucket(band_level, B)
+    if code0_padding(band_nodes_cat, band_in, req, rows, max_in):
+        req = pad_rows_code0(req, rows)
+    dev = dev_eq.device
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, torch.int64)
+
+    res = frag_align.align_fragments_tl(
+        dev_eq, dev_len, t(band_nodes_cat), t(band_in), t(seed_shift),
+        t(req.astype(np.int64)), t(rows), S, max_in, t(band_level),
+        n_levels)
+    return frag_align.FragResult(*(x.cpu().numpy() for x in res))

@@ -1,0 +1,326 @@
+"""The co-linear chaining alignment model: the CLC main path.
+
+Port of graphchainer_tpu/models/chainer.py (CLC mode).  Per batch of
+reads:
+
+  1. seed+window    minimizer seeds and fragment windows (native C++)
+  2. band_build     fragment bands and read planes (native C++ + numpy)
+  3. frag_kernel    the fragment DP on the device (CUDA kernel frag_core)
+  4. join           backwalk + forward/backward join into anchors (native)
+  5. chain_scan     the chaining event sweep on the device (torch)
+  6. stitch         best chain -> contiguous node path (native)
+  7. polish         banded NW of read vs path on the device (CUDA kernel
+                    polish_core, torch score and backtrace)
+  8. repair         corridor re-polish of the bubble-arm choices (native)
+  9. escalate       reads still above escalate_threshold re-run once with
+                    a wider band and in-degree cap
+
+The GA-baseline rescue of the reference (rescue_threshold,
+compare_with_baseline, auto_compare_dense on dense graphs) is not ported:
+align_batch raises NotImplementedError when asked for it.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field, replace
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from graphchainer_tpu import constants, native
+from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
+from graphchainer_tpu.graph.mpc import MPCIndex
+from graphchainer_tpu.index.minimizer import MinimizerIndex
+from graphchainer_tpu.utils import timers
+from graphchainer_tpu.utils.seq import match_masks
+from graphchainer_torch import native_glue
+from graphchainer_torch.align import polish
+from graphchainer_torch.align.anchors import (GraphTensors,
+                                              assemble_batch_cols,
+                                              run_fragments)
+from graphchainer_torch.align.chaining import batch_arrays_cols
+from graphchainer_torch.ops import frag_align
+from graphchainer_torch.ops.chain_scan import chain_scan
+
+
+@dataclass
+class ChainerConfig:
+    """graphchainer_tpu's ChainerConfig with the slice's defaults: no GA
+    rescue (rescue_threshold=0.0, auto_compare_dense=False) and the band
+    escalation triggered explicitly at a normalised edit distance of 0.35
+    (in the reference, escalate_threshold=None inherits rescue_threshold,
+    which would switch escalation off)."""
+    colinear_split_len: int = constants.DEFAULT_COLINEAR_SPLIT_LEN
+    colinear_split_gap: int = constants.DEFAULT_COLINEAR_SPLIT_GAP
+    colinear_gap: int = constants.DEFAULT_COLINEAR_GAP
+    band_slots: int = 32               # B: band node slots per fragment
+    max_in: int = constants.MAX_IN_DEGREE
+    band_slack: int = 8
+    seed_density: float = constants.DEFAULT_SEED_MINIMIZER_DENSITY
+    max_anchor_error: float = 0.5      # drop anchors with score > err*len
+    seeds_per_fragment: int = 2        # try the k rarest seeds per window
+    polish_band_words: int = 8         # 256-row polish band
+    compare_with_baseline: bool = False   # GA rescue: not ported
+    rescue_threshold: float = 0.0         # GA rescue: not ported
+    fast_mode: bool = False            # skip the polish (mismatch count)
+    escalate_band: int = 96            # wider band of the escalation retry
+    escalate_max_in: int = 12
+    escalate_threshold: Optional[float] = 0.35
+    auto_compare_dense: bool = False      # GA rescue: not ported
+    bubble_repair: bool = True         # native corridor re-polish
+    corridor_band: int = 16
+    corridor_passes: int = 1
+
+
+@dataclass
+class ReadAlignment:
+    name: str
+    seq: str
+    positions: np.ndarray              # (N,2) per path char (node, offset)
+    ops: Optional[np.ndarray]          # edit ops (linear_align OP_* codes)
+    score: int                         # edit distance read vs path
+    seq_start: int = 0
+    seq_end: int = 0
+    n_anchors: int = 0
+    n_chained: int = 0
+    n_seeds: int = 0
+    error: Optional[str] = None        # per-read fault isolation marker
+    is_secondary: bool = False
+    secondary: List["ReadAlignment"] = field(default_factory=list)
+
+    @property
+    def failed(self) -> bool:
+        return len(self.positions) == 0
+
+
+class ChainerModel:
+    """CLC aligner over one graph on one torch device ("cuda" runs the
+    hand-written kernels, "cpu" their plain torch versions)."""
+
+    def __init__(self, g: AlignmentGraph, mpc: MPCIndex,
+                 index: MinimizerIndex, cfg: Optional[ChainerConfig] = None,
+                 gx: Optional[GraphTensors] = None, device="cuda"):
+        self.g = g
+        self.mpc = mpc
+        self.index = index
+        self.cfg = cfg or ChainerConfig()
+        self.gx = gx or GraphTensors.build(g)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ChainerModel: device 'cuda' requested but "
+                               "torch.cuda.is_available() is False")
+        self._lock = threading.Lock()
+        # one batch at a time runs a device stage: those stages are chains
+        # of small torch ops, each of which drops and retakes the
+        # interpreter lock, and threads interleaving them stall each other
+        # (PERF.md); host stages of other batches run meanwhile
+        self._device_lock = threading.Lock()
+        self._escalated = None
+        indeg = np.diff(g.in_ptr)
+        self._dense_graph = bool(np.mean(indeg > self.cfg.max_in) > 0.02)
+
+    def escalated(self) -> "ChainerModel":
+        """Wide-band sibling model for the escalation retry (shares the
+        graph tensors, index and MPC; cannot escalate again)."""
+        with self._lock:
+            if self._escalated is None:
+                wide = replace(self.cfg,
+                               band_slots=self.cfg.escalate_band,
+                               max_in=self.cfg.escalate_max_in,
+                               band_slack=self.cfg.band_slack * 2,
+                               escalate_band=0, rescue_threshold=0.0,
+                               compare_with_baseline=False,
+                               auto_compare_dense=False)
+                self._escalated = ChainerModel(
+                    self.g, self.mpc, self.index, wide, gx=self.gx,
+                    device=self.device)
+                self._escalated._device_lock = self._device_lock
+            return self._escalated
+
+    def _check_no_rescue(self):
+        cfg = self.cfg
+        if (cfg.rescue_threshold > 0 or cfg.compare_with_baseline
+                or (cfg.auto_compare_dense and self._dense_graph)):
+            raise NotImplementedError(
+                "the GA-baseline rescue (rescue_threshold > 0, "
+                "compare_with_baseline, or auto_compare_dense on a dense "
+                "graph) is not ported to graphchainer_torch yet")
+
+    def _fragment_jobs_cols(self, reads: Sequence[Tuple[str, str]]):
+        cfg = self.cfg
+        return native_glue.seed_window_batch(
+            self.index, self.gx, reads, cfg.seed_density,
+            cfg.colinear_split_len, cfg.colinear_split_gap,
+            cfg.seeds_per_fragment)
+
+    def align_batch(self, reads: Sequence[Tuple[str, str]]
+                    ) -> List[ReadAlignment]:
+        cfg = self.cfg
+        self._check_no_rescue()
+        out = [ReadAlignment(name=n, seq=s, positions=[], ops=None,
+                             score=len(s), seq_end=len(s))
+               for n, s in reads]
+        with timers.stage("seed+window", len(reads)):
+            jobs, frags, seed_counts = self._fragment_jobs_cols(reads)
+        for ri, n in enumerate(seed_counts):
+            out[ri].n_seeds = n
+        if not len(jobs):
+            return out
+
+        with timers.stage("band_build", len(jobs)):
+            read_mm_cat = match_masks("".join(s for _, s in reads))
+            read_base = np.zeros(len(reads) + 1, dtype=np.int64)
+            np.cumsum([len(s) for _, s in reads], out=read_base[1:])
+            (band_nodes, band_nodes_cat, band_in, seed_shift, req, rows, S,
+             band_level) = assemble_batch_cols(self.gx, jobs, read_mm_cat,
+                                               read_base, B=cfg.band_slots,
+                                               max_in=cfg.max_in,
+                                               slack=cfg.band_slack)
+        # one per-batch read-code table on the device, shared by the
+        # polish passes (None when a read has IUPAC bases)
+        dev_tbl = polish.build_read_table([s for _, s in reads], self.device)
+        with self._device_lock, timers.stage("frag_kernel", len(jobs)):
+            res = run_fragments(self.gx, band_nodes_cat, band_in,
+                                seed_shift, req, rows, S, cfg.max_in,
+                                band_level, self.device)
+        # DP cells = band slots x read rows per fragment
+        timers.count("cells(frag)", int(rows.astype(np.int64).sum())
+                     * band_nodes_cat.shape[1])
+
+        # native backwalk + forward/backward join, one pass over all pairs
+        fr = np.asarray(frags, dtype=np.int64).reshape(-1, 7)
+        with timers.stage("join", len(fr)):
+            end_slice = (rows.astype(np.int64) - 1) // 32
+            (ok, score, fnode, foff, lnode, loff, poff, pdata) = \
+                native.join_anchors(
+                    res.best_in, res.best_slot, res.best_score,
+                    res.best_col, end_slice, band_nodes, self.g.node_len,
+                    fr[:, 3], fr[:, 4], fr[:, 5], fr[:, 6], frag_align.BIG)
+        keep = np.nonzero(
+            (ok == 1)
+            & (score <= cfg.max_anchor_error * (fr[:, 2] - fr[:, 1])))[0]
+        # anchors stay columnar; frags come in read order, so `keep` is
+        # grouped by read
+        counts = np.bincount(fr[keep, 0], minlength=len(reads))
+        live = np.nonzero(counts)[0]
+        if len(live) == 0:
+            return out
+        for ri in range(len(reads)):
+            out[ri].n_anchors = int(counts[ri])
+        a_x = fr[keep, 1]
+        a_y = fr[keep, 2] - 1
+
+        with self._device_lock, timers.stage("chain_scan", len(live)):
+            arrs = batch_arrays_cols(
+                self.g, self.mpc, counts[live], pdata[poff[keep]],
+                pdata[poff[keep + 1] - 1], a_x, a_y)
+            sres = chain_scan(**arrs, device=self.device)
+            c_val, c_pred = sres.c_val, sres.c_pred
+
+        polish_reads, polish_paths, polish_refs = [], [], []
+        with timers.stage("stitch", len(live)):
+            # rebase the kept anchors' ragged paths into one flat array
+            plens = poff[keep + 1] - poff[keep]
+            p_off = np.zeros(len(keep) + 1, dtype=np.int64)
+            np.cumsum(plens, out=p_off[1:])
+            pidx = (np.arange(int(p_off[-1]), dtype=np.int64)
+                    - np.repeat(p_off[:-1], plens)
+                    + np.repeat(poff[keep], plens))
+            anch_off = np.zeros(len(live) + 1, dtype=np.int64)
+            np.cumsum(counts[live], out=anch_off[1:])
+            # one native pass: best_chain + stitch + extend_tails per read
+            (positions_l, n_chained, first_x, last_y, okst) = \
+                native.stitch_batch(
+                    self.gx, anch_off, a_x, a_y, fnode[keep], foff[keep],
+                    lnode[keep], loff[keep], p_off, pdata[pidx],
+                    c_val, c_pred, [reads[ri][1] for ri in live],
+                    cfg.colinear_gap)
+            for bi, ri in enumerate(live):
+                try:
+                    out[ri].n_chained = int(n_chained[bi])
+                    if not okst[bi]:
+                        continue
+                    read = reads[ri][1]
+                    positions = positions_l[bi]
+                    out[ri].positions = positions
+                    pathseq = self.gx.positions_seq(positions)
+                except Exception as e:          # noqa: BLE001
+                    out[ri].positions = np.zeros((0, 2), dtype=np.int64)
+                    out[ri].error = f"{type(e).__name__}: {e}"
+                    continue
+                if cfg.fast_mode:
+                    # positional mismatch count (no CIGAR)
+                    x = int(first_x[bi]) - max(int(first_x[bi]), 0)
+                    n = min(len(pathseq), len(read) - x)
+                    a = np.frombuffer(pathseq[:n].encode(), np.uint8)
+                    b = np.frombuffer(read[x:x + n].encode(), np.uint8)
+                    out[ri].score = int((a != b).sum()) + abs(len(read) - n)
+                    continue
+                polish_reads.append(read)
+                polish_paths.append(pathseq)
+                polish_refs.append(ri)
+
+        if polish_reads:
+            with self._device_lock, timers.stage("polish", len(polish_reads)):
+                outcomes = polish.polish_batch(
+                    polish_reads, polish_paths, bw=cfg.polish_band_words,
+                    table=(None if dev_tbl is None else
+                           (dev_tbl, np.asarray(polish_refs, np.int64))),
+                    device=self.device)
+            for ri, oc in zip(polish_refs, outcomes):
+                out[ri].score = oc.score
+                out[ri].ops = oc.ops
+            if cfg.bubble_repair:
+                self._repair(out, reads, polish_refs)
+
+        esc_thr = cfg.escalate_threshold
+        if (esc_thr is not None and esc_thr > 0
+                and cfg.escalate_band > cfg.band_slots):
+            # band escalation: re-run still-bad reads through the fragment
+            # path with a wider band and in-degree cap
+            esc = [ri for ri in range(len(reads))
+                   if out[ri].failed
+                   or out[ri].score > esc_thr * max(len(reads[ri][1]), 1)]
+            if esc:
+                with timers.stage("escalate", len(esc)):
+                    ealn = self.escalated().align_batch(
+                        [reads[ri] for ri in esc])
+                timers.count("escalated_reads", len(esc))
+                for bi, ri in enumerate(esc):
+                    if not ealn[bi].failed and (
+                            out[ri].failed
+                            or ealn[bi].score < out[ri].score):
+                        ealn[bi].n_seeds = max(ealn[bi].n_seeds,
+                                               out[ri].n_seeds)
+                        out[ri] = ealn[bi]
+        return out
+
+    def _repair(self, out, reads, refs):
+        """Corridor re-polish (native corridor_polish_batch): exact banded
+        DP with per-cell backtrace over the path plus its 1-hop arms."""
+        cfg = self.cfg
+        cand = [ri for ri in refs
+                if out[ri].score > 0 and out[ri].ops is not None]
+        for _ in range(max(cfg.corridor_passes, 0)):
+            if not cand:
+                break
+            with timers.stage("repair", len(cand)):
+                fixed_l = native.corridor_polish_batch(
+                    self.gx, [out[ri].positions for ri in cand],
+                    [out[ri].ops for ri in cand],
+                    [reads[ri][1] for ri in cand],
+                    [out[ri].score for ri in cand],
+                    band=cfg.corridor_band)
+            improved = []
+            for ri, fixed in zip(cand, fixed_l):
+                if fixed is None:
+                    continue
+                sc, pos, ops = fixed
+                out[ri].score = sc
+                out[ri].positions = pos
+                out[ri].ops = ops
+                if sc > 0:
+                    improved.append(ri)
+            # another pass only helps where the path changed
+            cand = improved

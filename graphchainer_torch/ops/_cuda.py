@@ -1,0 +1,140 @@
+"""Build, load and count the hand-written CUDA kernels (csrc/*.cu).
+
+The kernels are compiled at first use with nvcc for sm_90a into one
+shared library with a plain C interface and loaded with ctypes: no
+PyTorch headers, so the build takes seconds.  The library lands in
+graphchainer_torch/_build/ under a name keyed by a hash of the sources,
+behind a file lock, so concurrent processes build it once.
+
+Each wrapper counts the launches of its kernel here (thread-safe: the
+pipeline runs batches from a thread pool).  A run resets the counts,
+drives the main path and reads them back to show the path went through
+the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("frag_core.cu", "polish_core.cu", "polish_walk.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None        # wall time of the build that produced the
+                            # loaded library (0.0 when it was already built)
+
+_count_lock = threading.Lock()
+_launches = {"frag_core": 0, "polish_core": 0, "polish_walk": 0}
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        _launches[name] += 1
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def launches() -> dict:
+    with _count_lock:
+        return dict(_launches)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libgct_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> float:
+    import fcntl
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return 0.0
+        t0 = time.perf_counter()
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
+               + [os.path.join(CSRC, s) for s in SOURCES])
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        os.replace(tmp, so)
+        return time.perf_counter() - t0
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        secs = _build(so) if not os.path.exists(so) else 0.0
+        L = ctypes.CDLL(so)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        L.frag_core_launch.restype = I
+        L.frag_core_launch.argtypes = [P] * 7 + [I] * 5 + [P] * 4 + [P]
+        L.polish_core_launch.restype = I
+        L.polish_core_launch.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
+        L.polish_walk_launch.restype = I
+        L.polish_walk_launch.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
+        L.gct_error_string.restype = ctypes.c_char_p
+        L.gct_error_string.argtypes = [I]
+        build_seconds = secs
+        _lib = L
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if rc != 0:
+        msg = lib().gct_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current CUDA stream on t's device, as a raw pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda_int32(name: str, t, shape=None):
+    """Check a kernel argument: CUDA, int32, contiguous, given shape."""
+    import torch
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

@@ -1,0 +1,190 @@
+"""align_reads: graph + indices + batched CLC alignment + GAF writer.
+
+Port of the CLC branch of graphchainer_tpu/pipeline.py: a reader thread
+streams reads into batches, a thread pool runs ChainerModel.align_batch
+on up to `inflight` batches at once (host stages of one batch overlap
+device work of another), and the main thread writes GAF lines and sums
+the statistics in numpy.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+from graphchainer_tpu.graph.alignment_graph import (AlignmentGraph,
+                                                    build_alignment_graph)
+from graphchainer_tpu.graph.mpc import MPCIndex, build_mpc
+from graphchainer_tpu.index.minimizer import MinimizerIndex, build_index
+from graphchainer_tpu.io import fastq
+from graphchainer_tpu.io.gfa import load_gfa
+from graphchainer_tpu.utils import timers
+from graphchainer_torch.io import gaf
+from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
+
+
+@dataclass
+class PipelineParams:
+    graph_file: str = ""
+    read_files: List[str] = field(default_factory=list)
+    out_gaf: Optional[str] = None
+    batch_size: int = 64
+    inflight: int = 3          # batches aligned concurrently
+    mpc_index_file: Optional[str] = None
+    minimizer_index_file: Optional[str] = None
+    seed_k: int = 15
+    seed_w: int = 20
+    discard_fraction: float = 0.0002
+    chainer: ChainerConfig = field(default_factory=ChainerConfig)
+    cigar_match_mismatch: bool = False
+    device: str = "cuda"
+    verbose: bool = False
+
+
+@dataclass
+class AlignmentStats:
+    reads: int = 0
+    bp_in_reads: int = 0
+    seeds_found: int = 0
+    reads_with_a_seed: int = 0
+    reads_with_an_alignment: int = 0
+    alignments: int = 0
+    bp_in_alignments: int = 0
+    assertion_broke: bool = False
+    seconds: float = 0.0
+
+
+def load_graph(path: str) -> AlignmentGraph:
+    """GFA input (.gfa / .gfa.gz); CLC needs a DAG."""
+    return build_alignment_graph(load_gfa(path))
+
+
+def get_or_build_mpc(g: AlignmentGraph, cache: Optional[str]) -> MPCIndex:
+    if cache and os.path.exists(cache):
+        return MPCIndex.load(cache)
+    mpc = build_mpc(g)
+    if cache:
+        mpc.save(cache)
+    return mpc
+
+
+def get_or_build_minimizer(g: AlignmentGraph,
+                           params: PipelineParams) -> MinimizerIndex:
+    cache = params.minimizer_index_file
+    if cache and os.path.exists(cache):
+        return MinimizerIndex.load(cache)
+    idx = build_index(g, k=params.seed_k, w=params.seed_w,
+                      discard_fraction=params.discard_fraction)
+    if cache:
+        idx.save(cache)
+    return idx
+
+
+def align_reads(params: PipelineParams) -> AlignmentStats:
+    t0 = time.time()
+    try:
+        g = load_graph(params.graph_file)
+    except ValueError as e:
+        if "directed cycle" in str(e):
+            print("The input sequence graph has a directed cycle.\n"
+                  "Colinear chaining only supports DAGs.", file=sys.stderr)
+            sys.exit(1)
+        raise
+    if params.verbose:
+        print(f"graph: {g.stats()}")
+    index = get_or_build_minimizer(g, params)
+    mpc = get_or_build_mpc(g, params.mpc_index_file)
+    model = ChainerModel(g, mpc, index, params.chainer,
+                         device=params.device)
+    stats = AlignmentStats()
+    batch_q: "queue.Queue" = queue.Queue(maxsize=4)
+
+    def reader():
+        batch = []
+        for path in params.read_files:
+            for rd in fastq.stream_reads(path):
+                batch.append((rd.name, rd.seq))
+                if len(batch) >= params.batch_size:
+                    batch_q.put(batch)
+                    batch = []
+        if batch:
+            batch_q.put(batch)
+        batch_q.put(None)
+
+    gaf_f = open(params.out_gaf, "w") if params.out_gaf else None
+    rt = threading.Thread(target=reader, daemon=True)
+    rt.start()
+    pool = ThreadPoolExecutor(max_workers=max(params.inflight, 1))
+    futures = []
+    totals = np.zeros(7, dtype=np.int64)
+
+    def drain(block_all=False):
+        done = []
+        while futures and (block_all or futures[0].done()
+                           or len(futures) >= max(params.inflight, 1)):
+            done.append(futures.pop(0).result())
+        return done
+
+    def consume(alns):
+        nonlocal totals
+        rows = []
+        for aln in alns:
+            row = [1, len(aln.seq), aln.n_seeds,
+                   1 if aln.n_seeds else 0, 0, 0, 0]
+            rows.append(row)
+            if aln.error is not None:
+                stats.assertion_broke = True
+            if aln.failed:
+                continue
+            row[4] = 1
+            row[5] = 1 + len(aln.secondary)
+            row[6] = sum(a.seq_end - a.seq_start
+                         for a in [aln] + list(aln.secondary))
+            if gaf_f:
+                line = gaf.gaf_line(g, aln,
+                                    cigar_merge_mm=params.cigar_match_mismatch)
+                if line:
+                    gaf_f.write(line + "\n")
+        if rows:
+            totals += np.asarray(rows, dtype=np.int64).sum(axis=0)
+
+    try:
+        while True:
+            batch = batch_q.get()
+            if batch is None:
+                break
+            futures.append(pool.submit(model.align_batch, batch))
+            for alns in drain():
+                consume(alns)
+        for alns in drain(block_all=True):
+            consume(alns)
+    finally:
+        pool.shutdown()
+        rt.join()
+        if gaf_f:
+            gaf_f.close()
+    (stats.reads, stats.bp_in_reads, stats.seeds_found,
+     stats.reads_with_a_seed, stats.reads_with_an_alignment,
+     stats.alignments, stats.bp_in_alignments) = (int(x) for x in totals)
+    stats.seconds = time.time() - t0
+    if params.verbose:
+        print(f"Input reads: {stats.reads} ({stats.bp_in_reads}bp)")
+        print(f"Seeds found: {stats.seeds_found}")
+        print(f"Reads with a seed: {stats.reads_with_a_seed}")
+        print(f"Reads with an alignment: {stats.reads_with_an_alignment}")
+        print(f"Alignments: {stats.alignments} "
+              f"({stats.bp_in_alignments}bp)")
+        print(f"Wall-clock: {stats.seconds:.2f}s")
+        if timers.snapshot():
+            print(timers.report())
+            rc = timers.report_counters()
+            if rc:
+                print(rc)
+    return stats

@@ -1,0 +1,220 @@
+"""Shared inputs of the graphchainer_torch tests, and the port's import
+rules.
+
+The port's tests hold graphchainer_torch to graphchainer_tpu on the same
+numpy inputs, with exact equality: the DP is integer arithmetic plus a
+float32 band ramp that is IEEE on both sides.  The input factories here are
+cached per process, so the test files of one worker share them.
+"""
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from graphchainer_tpu.graph.alignment_graph import build_alignment_graph
+from graphchainer_tpu.graph.mpc import build_mpc
+from graphchainer_tpu.graph.simulate import generate_path, simulate_reads
+from graphchainer_tpu.index.minimizer import build_index
+from graphchainer_tpu.utils.seq import match_masks
+from graphchainer_torch.align.anchors import level_bucket
+
+from test_mpc import random_dag_bigraph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# The port's CPU tests run many small torch ops; with one pytest-xdist
+# worker per core, torch's per-process intra-op thread pool would
+# oversubscribe the machine, so torch runs single-threaded here.
+torch.set_num_threads(1)
+
+
+def t64(a) -> torch.Tensor:
+    """numpy (or jax) array -> int64 CPU tensor."""
+    return torch.as_tensor(np.asarray(a).astype(np.int64))
+
+
+@functools.lru_cache(maxsize=None)
+def slice_case():
+    """A small random DAG whose source-to-sink path is ~570 bp, its
+    indices, and 7 reads: 6 of ~500 bp at 10% error and one at 50% error
+    (first), which the slice configuration sends to the band escalation.
+    Returns (g, mpc, index, path_seq, reads)."""
+    rng = np.random.default_rng(2)
+    bg = random_dag_bigraph(rng, n_seg=24, p_edge=0.15, max_len=300)
+    g = build_alignment_graph(bg)
+    mpc = build_mpc(g)
+    index = build_index(g, k=11, w=6)
+    path_seq, _ = generate_path(g, seed=5)
+    reads = simulate_reads(path_seq, 6, min(len(path_seq), 500), seed=8,
+                           error_rate=0.10, len_std=50)
+    noisy = simulate_reads(path_seq, 1, 500, seed=3, error_rate=0.5)
+    reads.insert(0, ("noisy",) + (noisy[0][1],))
+    return g, mpc, index, path_seq, reads
+
+
+@functools.lru_cache(maxsize=None)
+def frag_batch(B: int, max_in: int = 4, slack: int = 8):
+    """The port's fragment batch of slice_case()'s reads: (model, jobs,
+    frags, band_nodes, band_nodes_cat, band_in, seed_shift, req, rows, S,
+    band_level) from the native seed+window stage and
+    assemble_batch_cols."""
+    from graphchainer_torch.align.anchors import assemble_batch_cols
+    from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
+    g, mpc, index, _, reads = slice_case()
+    model = ChainerModel(g, mpc, index, ChainerConfig(band_slots=B),
+                         device="cpu")
+    jobs, frags, _ = model._fragment_jobs_cols(reads)
+    mm = match_masks("".join(s for _, s in reads))
+    base = np.zeros(len(reads) + 1, dtype=np.int64)
+    np.cumsum([len(s) for _, s in reads], out=base[1:])
+    arrs = assemble_batch_cols(model.gx, jobs, mm, base, B=B,
+                               max_in=max_in, slack=slack)
+    return (model, jobs, frags) + tuple(arrs)
+
+
+def padded_batch(B):
+    """frag_batch(B) with the bands padded back to exactly B slots (the
+    adaptive width trims this graph's bands to 8): pad slots are empty,
+    as in a batch whose widest band fills B slots."""
+    (model, jobs, frags, band_nodes, bnc, bi, ss, req, rows, S,
+     bl) = frag_batch(B)
+    pad = B - bnc.shape[1]
+    bnc = np.pad(bnc, ((0, 0), (0, pad)), constant_values=-1)
+    bi = np.pad(bi, ((0, 0), (0, pad), (0, 0)), constant_values=-1)
+    bl = np.pad(bl, ((0, 0), (0, pad)), constant_values=-1)
+    return model, bnc, bi, ss, req, rows, S, bl
+
+
+def lane_major_inputs(B):
+    """The transposed core inputs, built exactly as align_fragments_tl
+    builds them (as in tests/test_pallas_frag.py)."""
+    model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
+    gx = model.gx
+    N2 = gx.node_eq_cat.shape[0]
+    ids = bnc.astype(np.int64)
+    idc = np.clip(ids, 0, N2 - 1)
+    slot_eq = gx.node_eq_cat[idc]
+    slot_len = np.where(ids >= 0, gx.node_len_cat[idc], 0)
+    shift = np.zeros_like(slot_len)
+    shift[:, 0] = ss
+    slot_eq = slot_eq >> (shift.astype(np.uint32) & 31)[..., None]
+    slot_len = slot_len - shift
+    F = bnc.shape[0]
+    args = (np.transpose(slot_eq, (2, 1, 0)).astype(np.uint32),
+            np.transpose(slot_len, (1, 0)).astype(np.int32),
+            np.transpose(bi.astype(np.int32), (2, 1, 0)),
+            np.transpose(bl.astype(np.int32), (1, 0)),
+            np.transpose(req, (1, 2, 0)).astype(np.uint32),
+            rows.astype(np.int32)[None, :], np.zeros((1, F), np.int32))
+    return args, dict(S=S, max_in=4,
+                      n_levels=level_bucket(bl, bnc.shape[1]))
+
+
+def polish_arrays(rng, R, RMAX, PMAX, err=0.08):
+    """Random reads vs their paths as lane-major polish-core inputs
+    (planes_t (4, RMAX/32, R), path_t (PMAX, R), read and path lengths);
+    the generator of tests/test_pallas_polish.make_batch, as numpy."""
+    reads, paths = [], []
+    for _ in range(R):
+        L = int(rng.integers(40, PMAX - 10))
+        path = "".join(rng.choice(list("ACGT"), L))
+        read = list(path)
+        for _ in range(int(L * err)):
+            p = int(rng.integers(0, len(read)))
+            op = int(rng.integers(0, 3))
+            if op == 0:
+                read[p] = str(rng.choice(list("ACGT")))
+            elif op == 1 and len(read) > 2:
+                del read[p]
+            else:
+                read.insert(p, str(rng.choice(list("ACGT"))))
+        reads.append("".join(read)[:RMAX])
+        paths.append(path)
+    planes_t = np.zeros((4, RMAX // 32, R), np.uint32)
+    path_t = np.zeros((PMAX, R), np.uint32)
+    for i, (rd, pt) in enumerate(zip(reads, paths)):
+        mm = match_masks(rd)
+        for j, v in enumerate(mm):
+            for b in range(4):
+                if (v >> b) & 1:
+                    planes_t[b, j // 32, i] |= np.uint32(1) << (j % 32)
+        path_t[:len(pt), i] = match_masks(pt)
+    return (planes_t, path_t, np.array([len(r) for r in reads], np.int32),
+            np.array([len(p) for p in paths], np.int32))
+
+
+def mixed_batch():
+    """12 reads vs paths; every third path is cut to 48 chars, so those
+    reads' bands move several words per column (the reference's slow
+    branch) while the others move by at most one (its fast branch)."""
+    rng = np.random.default_rng(5)
+    planes_t, path_t, rl, pl = polish_arrays(rng, R=12, RMAX=512, PMAX=512)
+    pl = np.where(np.arange(12) % 3 == 0, np.minimum(pl, 48), pl)
+    return planes_t, path_t, rl, pl.astype(np.int32)
+
+
+@pytest.fixture
+def cuda_device():
+    """A CUDA device for tests of the kernels themselves (they have no
+    CPU mode); skips where there is no card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+_PORT_MODULES = [
+    "graphchainer_torch", "graphchainer_torch.cli",
+    "graphchainer_torch.pipeline", "graphchainer_torch.models.chainer",
+    "graphchainer_torch.ops.frag_align", "graphchainer_torch.ops.frag_kernel",
+    "graphchainer_torch.ops.linear_align",
+    "graphchainer_torch.ops.polish_kernel",
+    "graphchainer_torch.ops.chain_scan", "graphchainer_torch.ops.myers",
+    "graphchainer_torch.align.anchors", "graphchainer_torch.align.chaining",
+    "graphchainer_torch.align.polish", "graphchainer_torch.align.emit",
+    "graphchainer_torch.io.gaf", "graphchainer_torch.native_glue",
+    "graphchainer_torch.workload",
+]
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax blocked."""
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {_PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m, v in sys.modules.items()\n"
+            "       if m.startswith('jax') and v is not None]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_port_sources_never_import_jax():
+    """No file of the port names jax in an import."""
+    root = os.path.join(REPO, "graphchainer_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                p = os.path.join(dirpath, f)
+                with open(p) as fh:
+                    for line in fh:
+                        s = line.strip()
+                        if s.startswith(("import jax", "from jax")):
+                            offenders.append(p)
+    assert not offenders, offenders
+
+
+def test_slice_case_has_escalation_read():
+    """The shared case keeps a read noisy enough to escalate."""
+    _, _, _, path_seq, reads = slice_case()
+    assert len(path_seq) > 500 and reads[0][0] == "noisy"
+    assert all(400 <= len(s) <= 700 for _, s in reads)

@@ -1,0 +1,143 @@
+"""The CLC main path end to end: graphchainer_torch's ChainerModel,
+pipeline and CLI (on the CPU, where every kernel runs as its plain torch
+version) against graphchainer_tpu's ChainerModel under the slice
+configuration — no GA rescue, band escalation at a normalised edit
+distance of 0.35.  Per read, positions, ops, score, n_anchors and
+n_chained are equal and the GAF lines are byte-equal."""
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from graphchainer_tpu.io import gaf as JG
+from graphchainer_tpu.io.gfa import save_gfa
+from graphchainer_tpu.models import chainer as JC
+from graphchainer_tpu.utils import timers
+from graphchainer_torch import cli
+from graphchainer_torch.io import gaf as TG
+from graphchainer_torch.models import chainer as TC
+
+from test_mpc import random_dag_bigraph
+from test_torch_common import REPO, slice_case
+
+
+@functools.lru_cache(maxsize=None)
+def both_runs():
+    """(jax alignments, torch alignments, torch escalated-read count)."""
+    g, mpc, index, _, reads = slice_case()
+    jcfg = JC.ChainerConfig(rescue_threshold=0.0, escalate_threshold=0.35,
+                            auto_compare_dense=False)
+    ja = JC.ChainerModel(g, mpc, index, jcfg).align_batch(reads)
+    timers.reset()
+    ta = TC.ChainerModel(g, mpc, index, TC.ChainerConfig(),
+                         device="cpu").align_batch(reads)
+    return ja, ta, timers.counters().get("escalated_reads", 0)
+
+
+def test_align_batch_matches_jax():
+    ja, ta, _ = both_runs()
+    assert len(ja) == len(ta) == len(slice_case()[4])
+    for a, b in zip(ja, ta):
+        assert a.name == b.name
+        np.testing.assert_array_equal(np.asarray(a.positions),
+                                      np.asarray(b.positions),
+                                      err_msg=a.name)
+        assert (a.ops is None) == (b.ops is None), a.name
+        if a.ops is not None:
+            np.testing.assert_array_equal(a.ops, b.ops, err_msg=a.name)
+        assert (a.score, a.n_anchors, a.n_chained, a.n_seeds) == \
+            (b.score, b.n_anchors, b.n_chained, b.n_seeds), a.name
+    assert sum(not b.failed for b in ta) >= len(ta) - 1
+
+
+@pytest.mark.parametrize("merge_mm", [False, True])
+def test_gaf_lines_match_jax(merge_mm):
+    g = slice_case()[0]
+    ja, ta, _ = both_runs()
+    for a, b in zip(ja, ta):
+        assert JG.gaf_line(g, a, cigar_merge_mm=merge_mm) == \
+            TG.gaf_line(g, b, cigar_merge_mm=merge_mm)
+
+
+def test_noisy_read_escalates():
+    """The 50%-error read runs the band escalation (B = 96, max_in = 12),
+    and its result still equals the JAX package's."""
+    ja, ta, n_esc = both_runs()
+    assert n_esc >= 1
+    assert ta[0].name == "noisy" and ja[0].score == ta[0].score
+
+
+def test_ga_rescue_is_refused():
+    g, mpc, index, _, reads = slice_case()
+    for cfg in (TC.ChainerConfig(rescue_threshold=0.35),
+                TC.ChainerConfig(compare_with_baseline=True)):
+        m = TC.ChainerModel(g, mpc, index, cfg, device="cpu")
+        with pytest.raises(NotImplementedError):
+            m.align_batch(reads[:1])
+    # auto_compare_dense is refused only where the graph is dense
+    dense = random_dag_bigraph(np.random.default_rng(1), n_seg=12,
+                               p_edge=0.9, max_len=3)
+    from graphchainer_tpu.graph.alignment_graph import build_alignment_graph
+    from graphchainer_tpu.graph.mpc import build_mpc
+    from graphchainer_tpu.index.minimizer import build_index
+    gd = build_alignment_graph(dense)
+    m = TC.ChainerModel(gd, build_mpc(gd), build_index(gd, k=5, w=2),
+                        TC.ChainerConfig(auto_compare_dense=True),
+                        device="cpu")
+    assert m._dense_graph
+    with pytest.raises(NotImplementedError):
+        m.align_batch([("r", "ACGTACGTACGT")])
+
+
+def test_cli_gaf_matches_jax(tmp_path):
+    """python -m graphchainer_torch writes the GAF lines of the JAX
+    package's alignments (run with jax blocked in the child; three of the
+    reads, single-threaded torch, to keep the child light)."""
+    g, _, _, _, reads = slice_case()
+    reads = reads[1:4]
+    rng = np.random.default_rng(2)
+    save_gfa(random_dag_bigraph(rng, n_seg=24, p_edge=0.15, max_len=300),
+             str(tmp_path / "g.gfa"))
+    with open(tmp_path / "r.fa", "w") as f:
+        for name, seq in reads:
+            f.write(f">{name}\n{seq}\n")
+    out = tmp_path / "out.gaf"
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.argv = ['graphchainer_torch'] + sys.argv[1:]\n"
+            "runpy.run_module('graphchainer_torch', run_name='__main__')\n")
+    r = subprocess.run(
+        [sys.executable, "-c", code, "-g", str(tmp_path / "g.gfa"),
+         "-f", str(tmp_path / "r.fa"), "-a", str(out), "--device", "cpu",
+         "--seeds-minimizer-length", "11",
+         "--seeds-minimizer-windowsize", "6", "--batch-size", "2",
+         "-t", "2"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stderr
+    assert f"Input reads: {len(reads)}" in r.stdout
+    names = {n for n, _ in reads}
+    ja, _, _ = both_runs()
+    want = sorted(JG.gaf_line(g, a, cigar_merge_mm=False) for a in ja
+                  if a.name in names and not a.failed)
+    got = sorted(out.read_text().splitlines())
+    assert got == [w for w in want if w] and len(got) == len(reads)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--mode", "ga"], "--mode"),
+    (["--seeds-mem-count", "5"], "--seeds-mem-count"),
+    (["--compare-baseline"], "--compare-baseline"),
+    (["-a", "x.gam"], "GAM / JSON output"),
+    (["--polish-band", "3"], "--polish-band"),
+])
+def test_cli_rejects_unported(argv, msg):
+    base = ["-g", "g.gfa", "-f", "r.fa"]
+    if "-a" not in argv:
+        base += ["-a", "o.gaf"]
+    args = cli.build_parser().parse_args(base + argv)
+    with pytest.raises(SystemExit) as e:
+        cli.params_from_args(args)
+    assert msg in str(e.value)
