@@ -4,20 +4,27 @@
   python3 chip_smoke.py            # the full run, from the repo root
 
 Phases (any failure raises and exits non-zero before the result line):
-  1. environment: torch / CUDA versions, the card, building both kernels
-     (csrc/*.cu, nvcc for sm_90a);
+  1. environment: torch / CUDA versions, the card, building the CUDA
+     kernels (csrc/*.cu, one nvcc per source for sm_90a) and, beside
+     them, the C++ host runtime (g++);
   2. each kernel against its plain torch version on the card, exact
      equality, at the main path's shapes from real batches of the bench
      workload: frag_core at B=32 / S=2 / max_in=4 on a 128-read batch and
-     at the escalation shape B=96 / max_in=12 on 16 reads; polish_core at
-     bw 8, 16 and 32 on 32 reads against their stitched paths, plus a batch
-     whose short paths force band shifts of several words per column;
-     polish_walk (score + backtrace over the fill's dump) on the same;
+     at the escalation shape B=96 / max_in=12 on 16 reads; both entries
+     (warp per read, thread per read) of polish_core and of polish_walk
+     (score + backtrace over the fill's dump) at bw 8, 16 and 32 on 32
+     reads against their stitched paths, on a batch whose 48 bp paths
+     force band shifts of several words per column, and on a batch that
+     mixes such reads, empty ones and long indels with ordinary reads,
+     once under an ops_cap that long walks overflow; then both entries of
+     both polish kernels timed in turns on a 128-read batch, with the
+     bound of each kernel reckoned from that batch;
   3. the main path: bench.py's workload (960 reads of ~3 kbp at 10% error
      on the synthetic 60 kbp graph) through ChainerModel.align_batch on
-     cuda, one warm pass and one timed pass; both kernels must have
-     launched in the timed pass; accuracy bounds; and 8 reads run again
-     on the CPU (the plain versions) must give the same alignments;
+     cuda, one warm pass and one timed pass; frag_core and the warp
+     entries of both polish kernels must have launched in the timed pass;
+     accuracy bounds; and 8 reads run again on the CPU (the plain
+     versions) must give the same alignments;
   4. a real-size graph: 128 reads on a 5 Mbp graph from the same
      generator.
 
@@ -38,6 +45,9 @@ BIG_GRAPH_BP = 5_000_000     # phase 4: about an MHC-region graph
 ACC_ALIGNED_MIN = 0.99       # aligned_fraction lower bound
 ACC_NORM_ED_MAX = 0.095      # mean_norm_edit_distance upper bound (the
                              # reference package recorded 0.0864 here)
+# the kernels the main path must launch; the serial entries of the polish
+# kernels serve band widths it never uses and are timed as the yardstick
+MAIN_PATH_KERNELS = ("frag_core", "polish_core", "polish_walk")
 
 
 _T0 = time.perf_counter()
@@ -139,10 +149,12 @@ def check_frag(model, reads, B, max_in, slack, dev):
     plain_ms = cuda_ms(lambda: frag_align._frag_core_t(*args, **kw),
                        warm=False)
     F = slot_eq_t.shape[2]
+    bnd = frag_bound(k_args, kw["S"], max_in, got)
     log(f"frag_core B={B} (batch B_eff={b_eff}) S={kw['S']} "
         f"max_in={max_in} n_levels={kw['n_levels']} F={F}: exact; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd[0]:.5f} ms by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
+    return err, ms, plain_ms, bnd
 
 
 def polish_inputs(pairs, dev):
@@ -169,69 +181,196 @@ def polish_inputs(pairs, dev):
     return planes_t, path_t, t(rl), t(pl), rc, pc, rmax + pmax
 
 
-def check_polish(pairs, bw, dev, label, time_plain=True):
-    import torch
-    from graphchainer_torch.ops import linear_align, polish_kernel
-    from graphchainer_torch.ops.myers import to_i32_bits, u32
-    planes_t, path_t, rl, pl = polish_inputs(pairs, dev)[:4]
-    k_args = (to_i32_bits(planes_t), path_t.to(torch.int32),
-              rl.to(torch.int32), pl.to(torch.int32), bw)
-    got = polish_kernel.polish_core_cuda(*k_args)
-    torch.cuda.synchronize()
-    ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
-    err = 0
-    for name, a, b, word in zip(("dump_vp", "dump_vn", "dump_sb",
-                                 "dump_base"), got, ref,
-                                (True, True, False, False)):
-        e = max_abs_diff(u32(a) if word else a, b)
-        err = max(err, e)
-        if e:
-            raise AssertionError(f"polish_core bw={bw} ({label}): {name} "
-                                 f"differs from the plain version (max abs "
-                                 f"diff {e})")
-    ms = cuda_ms(lambda: polish_kernel.polish_core_cuda(*k_args), reps=5)
-    plain_ms = float("nan")
-    if time_plain:
-        plain_ms = cuda_ms(lambda: linear_align._polish_core_t(
-            planes_t, path_t, rl, pl, bw), warm=False)
-    log(f"polish_core bw={bw} ({label}) R={planes_t.shape[2]} "
-        f"RW={planes_t.shape[1]} P={path_t.shape[0]}: exact; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
-
-
-def check_walk(pairs, bw, dev, label, time_plain=True):
-    """The walk kernel (score + backtrace + op packing) against its plain
-    torch version, on the fill kernel's dump of the same pairs."""
+def polish_kernel_args(pairs, bw, dev):
+    """(int32 kernel inputs, int64 plain inputs, max_steps, ops_cap) of
+    (read, path) pairs, as align/polish.py sizes them."""
     import torch
     from graphchainer_torch.align.polish import _ops_cap
-    from graphchainer_torch.ops import linear_align, polish_kernel
     from graphchainer_torch.ops.myers import to_i32_bits
     planes_t, path_t, rl, pl, rc, _, steps = polish_inputs(pairs, dev)
+    k_in = (to_i32_bits(planes_t), path_t.to(torch.int32),
+            rl.to(torch.int32), pl.to(torch.int32))
     cap = _ops_cap(rc.shape[1] * 16, path_t.shape[0], bw)
-    pi, ti = to_i32_bits(planes_t), path_t.to(torch.int32)
-    rli, pli = rl.to(torch.int32), pl.to(torch.int32)
-    dump = polish_kernel.polish_core_cuda(pi, ti, rli, pli, bw)
-    k_args = dump + (pi, ti, rli, pli, bw, steps, cap)
-    p_args = dump + (planes_t, path_t, rl, pl, bw, steps, cap)
-    got = polish_kernel.polish_walk_cuda(*k_args)
+    return k_in, (planes_t, path_t, rl, pl), steps, cap
+
+
+def check_polish(pairs, bw, dev, label, small_cap=0):
+    """Both entries of the fill kernel and of the walk kernel against the
+    plain torch versions on the same pairs: the dump of each fill entry,
+    then the packed rows of each walk entry over its own fill's dump
+    (and, with small_cap, again under an ops_cap that short walks fit
+    and long ones overflow).  Returns (fill max abs err, walk max abs
+    err, plain fill ms, plain walk ms): the plain versions are timed in
+    their one run here."""
+    import torch
+    from graphchainer_torch.ops import linear_align, polish_kernel
+    from graphchainer_torch.ops.myers import u32
+    k_in, p_in, steps, cap = polish_kernel_args(pairs, bw, dev)
+    R, P = len(pairs), p_in[1].shape[0]
+    ref = None
+
+    def plain_fill():
+        nonlocal ref
+        ref = linear_align._polish_core_t(*p_in, bw)
+    fill_plain = cuda_ms(plain_fill, warm=False)
+    fill_err, dumps = 0, {}
+    for entry in polish_kernel.ENTRIES:
+        got = polish_kernel.polish_core_cuda(*k_in, bw, entry=entry)
+        torch.cuda.synchronize()
+        dumps[entry] = got
+        for name, a, b, word in zip(("dump_vp", "dump_vn", "dump_sb",
+                                     "dump_base"), got, ref,
+                                    (True, True, False, False)):
+            e = max_abs_diff(u32(a) if word else a, b)
+            fill_err = max(fill_err, e)
+            if e:
+                raise AssertionError(
+                    f"polish_core[{entry}] bw={bw} ({label}): {name} "
+                    f"differs from the plain version (max abs diff {e})")
+    walk_err, walk_plain, n_ok = 0, float("nan"), []
+    for c in ((cap, small_cap) if small_cap else (cap,)):
+        rows = None
+
+        def plain_walk():
+            nonlocal rows
+            rows = linear_align._polish_walk_t(*ref, *p_in, bw, steps, c)
+        t = cuda_ms(plain_walk, warm=False)
+        if c == cap:
+            walk_plain = t
+        for entry in polish_kernel.ENTRIES:
+            got = polish_kernel.polish_walk_cuda(*dumps[entry], *k_in, bw,
+                                                 steps, c, entry=entry)
+            torch.cuda.synchronize()
+            e = max_abs_diff(got, rows)
+            walk_err = max(walk_err, e)
+            if e:
+                raise AssertionError(
+                    f"polish_walk[{entry}] bw={bw} ops_cap={c} ({label}): "
+                    f"packed rows differ from the plain version (max abs "
+                    f"diff {e})")
+        n_ok.append(int((rows[:, 1] >= 0).sum()))
+    log(f"polish bw={bw} ({label}) R={R} RW={k_in[0].shape[1]} P={P} "
+        f"max_steps={steps} ops_cap={cap}"
+        + (f" and {small_cap}" if small_cap else "")
+        + f": fill and walk, warp and serial entries, exact "
+        f"({'/'.join(map(str, n_ok))} of {R} walks complete); plain fill "
+        f"{fill_plain:.3f} ms, plain walk {walk_plain:.3f} ms")
+    return fill_err, walk_err, fill_plain, walk_plain
+
+
+def time_polish_entries(pairs, bw, dev, reps=5):
+    """Old and new design of both polish kernels on one batch, in turns
+    (warp, serial, serial, warp), `reps` launches a turn.  The rows of
+    the two designs must be equal.  Returns {kernel: {entry: ms}} and the
+    inputs' sizes for the bound."""
+    import torch
+    from graphchainer_torch.ops import polish_kernel
+    k_in, _, steps, cap = polish_kernel_args(pairs, bw, dev)
+    fill = {e: (lambda e=e: polish_kernel.polish_core_cuda(*k_in, bw,
+                                                           entry=e))
+            for e in polish_kernel.ENTRIES}
+    dumps = {e: fill[e]() for e in polish_kernel.ENTRIES}
+    walk = {e: (lambda e=e: polish_kernel.polish_walk_cuda(
+        *dumps[e], *k_in, bw, steps, cap, entry=e))
+        for e in polish_kernel.ENTRIES}
+    rows = {e: walk[e]() for e in polish_kernel.ENTRIES}
     torch.cuda.synchronize()
-    ref = linear_align._polish_walk_t(*p_args)
-    err = max_abs_diff(got, ref)
-    if err:
-        raise AssertionError(f"polish_walk bw={bw} ({label}): packed rows "
-                             f"differ from the plain version (max abs diff "
-                             f"{err})")
-    ms = cuda_ms(lambda: polish_kernel.polish_walk_cuda(*k_args), reps=5)
-    plain_ms = float("nan")
-    if time_plain:
-        plain_ms = cuda_ms(lambda: linear_align._polish_walk_t(*p_args),
-                           warm=False)
-    n_ok = int((got[:, 1] >= 0).sum())
-    log(f"polish_walk bw={bw} ({label}) R={len(pairs)} max_steps={steps} "
-        f"ops_cap={cap}: exact ({n_ok} complete walks); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
+    if not torch.equal(rows["warp"], rows["serial"]):
+        raise AssertionError(f"polish bw={bw}: the warp entries' packed "
+                             "rows differ from the serial entries'")
+    out = {}
+    for name, fns in (("polish_core", fill), ("polish_walk", walk)):
+        turns = {"warp": [], "serial": []}
+        for e in ("warp", "serial", "serial", "warp"):
+            turns[e].append(cuda_ms(fns[e], reps=reps))
+        out[name] = {e: sum(v) / len(v) for e, v in turns.items()}
+        log(f"{name} bw={bw} R={len(pairs)} P={k_in[1].shape[0]} "
+            f"RW={k_in[0].shape[1]}: warp {turns['warp'][0]:.4f} / "
+            f"{turns['warp'][1]:.4f} ms, serial {turns['serial'][0]:.4f} / "
+            f"{turns['serial'][1]:.4f} ms")
+    return out, k_in, dumps["warp"], rows["warp"]
+
+
+# ---------------------------------------------------------------- bounds
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+INT_OPS_PER_S = 67e12         # float32 outside the tensor cores, the
+                              # nearest published rate to the int32 pipes
+                              # (which run at most as fast)
+
+
+def bound(bytes_moved: int, ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the peak rate."""
+    tb = bytes_moved / HBM_BYTES_PER_S * 1e3
+    to = ops / INT_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def frag_bound(k_args, S, max_in, out):
+    """Every input read once, every output written once; operations of
+    the live slots only: ~66 per merge candidate (33 adds and mins), ~22
+    per column advanced, each slice."""
+    slot_len_t, band_in_t, band_level_t = k_args[1], k_args[2], k_args[3]
+    live = int((band_level_t >= 0).sum())
+    cands = live + int((band_in_t >= 0).sum())
+    cols = int(slot_len_t.clamp(min=0).sum())
+    ops = S * (66 * cands + 22 * cols)
+    b = nbytes(*k_args) + nbytes(out.best_score, out.best_slot,
+                                 out.best_col, out.best_in)
+    return bound(b, ops) + (b, ops)
+
+
+def fill_bound(k_in, dump, bw):
+    """Inputs once, the dump once; ~25 integer operations a band word a
+    column."""
+    P, _, R = dump[0].shape
+    b = nbytes(*k_in) + nbytes(*dump)
+    ops = 25 * P * bw * R
+    return bound(b, ops) + (b, ops)
+
+
+def walk_bound(rows, k_in, P):
+    """What these walks need: every dump word a step's three neighbour
+    cells lie in, counted once (12 bytes: vp, vn, sb), the band base and
+    path mask of every column visited (8 bytes), the read's plane words
+    visited (16 bytes), the lengths, and the packed rows written once;
+    ~40 integer operations a step.  A failed walk counts for its score
+    cell only."""
+    import numpy as np
+    w = rows.cpu().numpy()
+    rl = k_in[2].cpu().numpy()
+    pl = k_in[3].cpu().numpy()
+    words = cols = planes = steps = 0
+    shifts = np.arange(16, dtype=np.uint32) * 2
+    for i in range(w.shape[0]):
+        n = int(w[i, 1])
+        if n < 0:
+            words += 1
+            cols += 1
+            continue
+        ops = ((w[i, 3:].astype(np.uint32)[:, None] >> shifts) & 3
+               ).reshape(-1)[:n]
+        # OP_MATCH 0 / OP_MISMATCH 3 move both, OP_DEL 1 the column,
+        # OP_INS 2 the row; positions before each step and the end
+        rr = int(rl[i]) - 1 - np.concatenate([[0], np.cumsum(ops != 1)])
+        cc = int(pl[i]) - 1 - np.concatenate([[0], np.cumsum(ops != 2)])
+        cells = np.concatenate([np.stack([rr - dr, cc - dc])
+                                for dr, dc in ((0, 0), (1, 1), (0, 1),
+                                               (1, 0))], axis=1)
+        cells = cells[:, (cells[0] >= 0) & (cells[1] >= 0)]
+        cq = np.minimum(cells[1], P - 1)
+        words += len(np.unique(cq.astype(np.int64) * (1 << 20)
+                               + cells[0] // 32))
+        cols += len(np.unique(cq))
+        planes += len(np.unique(rr[rr >= 0] // 32))
+        steps += n
+    b = (12 * words + 8 * cols + 16 * planes + nbytes(k_in[2], k_in[3])
+         + nbytes(rows))
+    return bound(b, 40 * steps) + (b, 40 * steps)
 
 
 def stitched_pairs(model, reads):
@@ -256,6 +395,35 @@ def run_pass(model, chunks, workers):
     return aligned / max(n, 1), float(np.mean(scores)) if scores else None
 
 
+def profile_pass(model, chunks, workers):
+    """One pass under torch.profiler: device time summed over kernels
+    (they share one stream, so the sum is the busy time) against the
+    pass's wall time, and the hand kernels' shares."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_pass(model, chunks, workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    events = [(dev_us(e), e.count, e.key) for e in prof.key_averages()
+              if dev_us(e) > 0]
+    busy = sum(t for t, _, _ in events) / 1e6
+    if not events:
+        log("profile: the profiler recorded no device time")
+        return
+    log(f"profile: pass wall {wall:.3f} s under the profiler, device busy "
+        f"{busy:.4f} s, busy share {busy / wall:.4f} ({workers} workers, "
+        f"device-stage lock)")
+    for t, n, key in sorted(events, reverse=True)[:12]:
+        log(f"profile:   {t / 1e3:10.3f} ms  {n:6d} x  {key[:90]}")
+
+
 def same_alignments(a_list, b_list) -> bool:
     import numpy as np
     for a, b in zip(a_list, b_list):
@@ -275,6 +443,10 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="a small workload (first check of a new kernel); "
                          "skips the 5 Mbp graph")
+    ap.add_argument("--profile", action="store_true",
+                    help="one more pass of the main path under "
+                         "torch.profiler: the device's busy share and the "
+                         "kernels' device time by name")
     opts = ap.parse_args()
 
     import torch
@@ -283,9 +455,10 @@ def main() -> int:
               "smoke run needs a CUDA card", file=sys.stderr)
         return 2
     import numpy as np
+    from graphchainer_torch import native
     from graphchainer_torch.ops import _cuda
     from graphchainer_torch.models.chainer import ChainerModel, timers
-    from graphchainer_torch.workload import bench_workload
+    from graphchainer_torch.workload import bench_workload, polish_hard_pairs
 
     # ---- 1. environment + build
     smi = nvidia_smi()
@@ -295,9 +468,14 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
     log(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    _cuda.lib()
-    log(f"kernels built in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_cuda.build_seconds:.2f} s): {_cuda.library_path()}")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native.get_lib)      # g++ beside the nvcc runs
+        _cuda.lib()
+        cuda_s = time.perf_counter() - t0
+        host.result()
+    log(f"kernels built in {cuda_s:.2f} s (nvcc {_cuda.build_seconds:.2f} "
+        f"s): {_cuda.library_path()}; host runtime ready after "
+        f"{time.perf_counter() - t0:.2f} s: {native.library_path()}")
 
     # ---- 3's workload first: phase 2 takes its shapes from real batches
     quick = opts.quick
@@ -310,22 +488,41 @@ def main() -> int:
     model = ChainerModel(g, mpc, index, device="cuda")
 
     # ---- 2. kernels vs plain versions on the card
-    frag_err, frag_ms, frag_plain = check_frag(model, reads[:128], 32, 4, 8,
-                                               dev)
-    e2, _, _ = check_frag(model, reads[:16], 96, 12, 16, dev)
+    frag_err, frag_ms, frag_plain, frag_bnd = check_frag(
+        model, reads[:128], 32, 4, 8, dev)
+    e2 = check_frag(model, reads[:16], 96, 12, 16, dev)[0]
     frag_err = max(frag_err, e2)
-    pairs = stitched_pairs(model, reads[:32])
+    n_timed = 32 if quick else 128
+    pairs_all = stitched_pairs(model, reads[:n_timed])
+    pairs = pairs_all[:32]
+    # the plain versions are timed here, once, on 32 reads
     pol = {bw: check_polish(pairs, bw, dev, "stitched paths")
            for bw in (8, 16, 32)}
-    short = [(r, p[:48] if i % 2 == 0 else p)
-             for i, (r, p) in enumerate(pairs)]
-    e3, _, _ = check_polish(short, 8, dev, "short paths, multi-word shifts",
-                            False)
-    pol_err = max([v[0] for v in pol.values()] + [e3])
-    walk = {bw: check_walk(pairs, bw, dev, "stitched paths")
-            for bw in (8, 16, 32)}
-    e4, _, _ = check_walk(short, 8, dev, "short paths", False)
-    walk_err = max([v[0] for v in walk.values()] + [e4])
+    checks = list(pol.values())
+    # every path cut to 48 bp: each band moves several words a column
+    checks.append(check_polish([(r, p[:48]) for r, p in pairs], 8, dev,
+                               "48 bp paths, multi-word shifts"))
+    # ordinary reads mixed with the hard cases (workload.polish_hard_pairs)
+    hard = [(r, p) for _, r, p in polish_hard_pairs(
+        5, 8, 1500 if quick else 3000)]
+    checks.append(check_polish(hard, 8, dev, "hard cases mixed in",
+                               small_cap=1600 if quick else 3200))
+    checks.append(check_polish(hard, 16, dev, "hard cases mixed in"))
+    pol_err = max(c[0] for c in checks)
+    walk_err = max(c[1] for c in checks)
+    # old and new design of both kernels, one call, at the main path's
+    # batch size
+    timed, bounds = {}, {}
+    for bw in (8, 16, 32):
+        timed[bw], k_in, dump, rows = time_polish_entries(
+            pairs_all, bw, dev)
+        bounds[bw] = {"polish_core": fill_bound(k_in, dump, bw),
+                      "polish_walk": walk_bound(rows, k_in,
+                                                dump[0].shape[0])}
+        for name, bnd in bounds[bw].items():
+            log(f"{name} bw={bw} R={len(pairs_all)}: bound {bnd[0]:.5f} ms "
+                f"by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
+        del k_in, dump, rows
 
     # ---- 3. the main path
     batch = 128
@@ -352,8 +549,8 @@ def main() -> int:
     log("stage seconds (thread-summed): " + json.dumps(stages))
     log("counters: " + json.dumps(counters))
     log(f"kernel launches in the timed pass: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
     if aligned_frac < ACC_ALIGNED_MIN or norm_ed is None \
@@ -362,6 +559,8 @@ def main() -> int:
             f"accuracy out of bounds: aligned_fraction {aligned_frac} "
             f"(>= {ACC_ALIGNED_MIN}), mean_norm_edit_distance {norm_ed} "
             f"(<= {ACC_NORM_ED_MAX})")
+    if opts.profile:
+        profile_pass(model, chunks, workers)
     small = reads[:8]
     gpu_alns = model.align_batch(small)
     cpu_model = ChainerModel(g, mpc, index, gx=model.gx, device="cpu")
@@ -394,22 +593,53 @@ def main() -> int:
         if ok < 0.99 * 128:
             raise AssertionError(f"big graph: only {ok}/128 reads aligned")
 
+    # No single PyTorch call computes any of these functions (a banded
+    # bit-parallel DP over a graph band, its linear form with a dump, a
+    # data-dependent backtrace), so library_ms is null throughout.  The
+    # polish rows are for bw=8, the band the main path starts every batch
+    # with; plain_ms is the plain version's one run on 32 reads.
+    def entry(name, source, replaces, err, ms, plain_ms, bnd, **more):
+        return dict({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": round(ms, 4),
+                     "plain_ms": round(plain_ms, 4),
+                     "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
+                     "library_ms": None,
+                     "on_main_path": name in MAIN_PATH_KERNELS,
+                     "bound_bytes": bnd[2], "bound_operations": bnd[3]},
+                    **more)
+
+    def by_bw(name, which):
+        return {str(bw): round(timed[bw][name][which], 4)
+                for bw in sorted(timed)}
+
+    core_src = "graphchainer_torch/csrc/polish_core.cu"
+    walk_src = "graphchainer_torch/csrc/polish_walk.cu"
+    core_tpu = "graphchainer_tpu/ops/pallas_polish2.py:182"
+    walk_tpu = "graphchainer_tpu/ops/linear_align.py:444"
+    b8 = bounds[8]
     kernels = [
-        {"name": "frag_core", "route": "cuda",
-         "source": "graphchainer_torch/csrc/frag_core.cu",
-         "replaces": "graphchainer_tpu/ops/pallas_frag.py:278",
-         "launches": launches["frag_core"], "max_abs_err": frag_err,
-         "ms": round(frag_ms, 4), "plain_ms": round(frag_plain, 4)},
-        {"name": "polish_core", "route": "cuda",
-         "source": "graphchainer_torch/csrc/polish_core.cu",
-         "replaces": "graphchainer_tpu/ops/pallas_polish2.py:182",
-         "launches": launches["polish_core"], "max_abs_err": pol_err,
-         "ms": round(pol[8][1], 4), "plain_ms": round(pol[8][2], 4)},
-        {"name": "polish_walk", "route": "cuda",
-         "source": "graphchainer_torch/csrc/polish_walk.cu",
-         "replaces": "graphchainer_tpu/ops/linear_align.py:444",
-         "launches": launches["polish_walk"], "max_abs_err": walk_err,
-         "ms": round(walk[8][1], 4), "plain_ms": round(walk[8][2], 4)},
+        entry("frag_core", "graphchainer_torch/csrc/frag_core.cu",
+              "graphchainer_tpu/ops/pallas_frag.py:278", frag_err, frag_ms,
+              frag_plain, frag_bnd),
+        entry("polish_core", core_src, core_tpu, pol_err,
+              timed[8]["polish_core"]["warp"], pol[8][2], b8["polish_core"],
+              reads=len(pairs_all), ms_by_bw=by_bw("polish_core", "warp"),
+              bound_ms_by_bw={str(bw): round(bounds[bw]["polish_core"][0], 6)
+                              for bw in sorted(bounds)}),
+        entry("polish_walk", walk_src, walk_tpu, walk_err,
+              timed[8]["polish_walk"]["warp"], pol[8][3], b8["polish_walk"],
+              reads=len(pairs_all), ms_by_bw=by_bw("polish_walk", "warp"),
+              bound_ms_by_bw={str(bw): round(bounds[bw]["polish_walk"][0], 6)
+                              for bw in sorted(bounds)}),
+        entry("polish_core_serial", core_src, core_tpu, pol_err,
+              timed[8]["polish_core"]["serial"], pol[8][2],
+              b8["polish_core"], reads=len(pairs_all),
+              ms_by_bw=by_bw("polish_core", "serial")),
+        entry("polish_walk_serial", walk_src, walk_tpu, walk_err,
+              timed[8]["polish_walk"]["serial"], pol[8][3],
+              b8["polish_walk"], reads=len(pairs_all),
+              ms_by_bw=by_bw("polish_walk", "serial")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

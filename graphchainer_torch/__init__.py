@@ -18,8 +18,12 @@ tensor it launches the kernel or raises.  The JAX package is the
 reference: the tests hold this port to it, bit for bit, on the same
 numpy inputs.
 
-The shared host layer (graph, index, native C++ runtime) is imported from
-graphchainer_tpu's JAX-free modules; nothing here imports jax.
+The port keeps its own copies of the host layer (constants, utils/, io/,
+graph/, index/, native.py: each names its source) and imports neither jax
+nor anything of graphchainer_tpu.  The C++ host runtime's source
+(native/graphchainer_native.cpp, at the repository's root) is shared by
+path and built into this package's own _build/.  convert.py builds the
+port's objects from the fields of the JAX package's, for the tests.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Fragment jobs, bands and the fragment DP run (CLC fragment stage).
 
 JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
-(GraphTensors, JobCols, assemble_batch_cols, pack_row_planes,
-level_bucket, _warn_truncated) plus `run_fragments`, which uploads the
+(GraphTensors, assemble_batch_cols, pack_row_planes, level_bucket,
+_warn_truncated; JobCols lives in native.py) plus `run_fragments`, which uploads the
 node tables once and runs ops/frag_align.align_fragments_tl over a whole
 batch on the model's device.
 
@@ -20,11 +20,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from graphchainer_tpu import native
-from graphchainer_tpu.constants import MAX_IN_DEGREE
-from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
-from graphchainer_tpu.utils import timers
-from graphchainer_tpu.utils.bits import reverse_eq_planes
+from graphchainer_torch import native
+from graphchainer_torch.native import JobCols
+from graphchainer_torch.constants import MAX_IN_DEGREE
+from graphchainer_torch.graph.alignment_graph import AlignmentGraph
+from graphchainer_torch.utils import timers
+from graphchainer_torch.utils.bits import reverse_eq_planes
 from graphchainer_torch.ops import frag_align
 from graphchainer_torch.ops.myers import to_i32_bits
 
@@ -143,20 +144,6 @@ class GraphTensors:
                        torch.as_tensor(self.node_len_cat).to(dev))
                 self._dev[dev] = got
             return got
-
-
-@dataclass
-class JobCols:
-    """Columnar fragment-job batch."""
-    seed: np.ndarray      # (F,) int64 split-node id (slot 0 of the band)
-    trim: np.ndarray      # (F,) int64 seed_trim_len
-    rev: np.ndarray       # (F,) bool backward-extension job
-    read_idx: np.ndarray  # (F,) int64 read of the batch
-    lo: np.ndarray        # (F,) int64 read row range [lo, hi)
-    hi: np.ndarray        # (F,) int64 (rev jobs consume rows hi-1 .. lo)
-
-    def __len__(self):
-        return len(self.seed)
 
 
 def assemble_batch_cols(gx: GraphTensors, jc: JobCols, read_mm_cat:

@@ -14,8 +14,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
-from graphchainer_tpu.graph.mpc import MPCIndex
+from graphchainer_torch.graph.alignment_graph import AlignmentGraph
+from graphchainer_torch.graph.mpc import MPCIndex
 from graphchainer_torch.ops.chain_scan import (EV_INSERT, EV_QUERY,
                                                EV_SAME_END, EV_SAME_START)
 

@@ -11,7 +11,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
+from graphchainer_torch.graph.alignment_graph import AlignmentGraph
 from graphchainer_torch.models.chainer import ReadAlignment
 
 OP_MATCH, OP_DEL, OP_INS, OP_MISMATCH = 0, 1, 2, 3

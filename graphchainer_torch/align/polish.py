@@ -19,8 +19,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from graphchainer_tpu.utils import timers
-from graphchainer_tpu.utils.seq import match_masks
+from graphchainer_torch.utils import timers
+from graphchainer_torch.utils.seq import match_masks
 from graphchainer_torch.ops import linear_align
 
 W = 32

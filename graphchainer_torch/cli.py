@@ -14,7 +14,7 @@ import argparse
 import math
 import sys
 
-from graphchainer_tpu import constants
+from graphchainer_torch import constants
 from graphchainer_torch.models.chainer import ChainerConfig
 from graphchainer_torch.ops.polish_kernel import BAND_WORDS
 from graphchainer_torch.pipeline import PipelineParams, align_reads

@@ -7,22 +7,50 @@
 // (band_base, float32), advanced with the Myers recurrence; every column's
 // band words are dumped for the score and the backtrace.
 //
-// What bounds it on the H100: the dump.  Each column writes 12 * bw bytes
-// per read (vp, vn, sb) plus the band base, against ~20 integer ops per
-// word; a read has no parallelism inside a column (the horizontal carry
-// runs from word w to w + 1).
+// Two entries, chosen by bw alone in ops/polish_kernel.py:
 //
-// Design: one thread per read, band state in registers (bw is a template
-// parameter, loops fully unrolled).  The dump is indexed [col][word][read],
-// so a warp's stores are coalesced.  The Pallas kernel kept a rolling
-// window of read-plane words (the TPU has no vector gathers) with a fast
-// branch for band shifts of 0 or 1 and a slow branch that rebuilt the
-// window.  Whenever the reference reads the window, its first bw words
-// equal the read planes at rows of the current band, so this kernel loads
-// those plane words directly (L1/L2-cached, coalesced across reads) and a
-// band shift of k words is k single-word shifts that fill with the
-// all-insertion word bot_sb + W * j; the dump is the same.  band_base
-// rounds as JAX float32 does: __fdiv_rn / __fmul_rn, truncation toward 0.
+// polish_core_launch (bw 8, 16, 32): one warp per read, one lane per band
+// word, the columns as a skewed wavefront.  Absolute word a (rows 32a ..
+// 32a + 31) sits on lane a mod BW and handles column p at step p + a.  By
+// then its own state after column p - 1 (step p + a - 1, same lane) and the
+// horizontal carry of word a - 1 at column p (step p + a - 1, the
+// neighbour lane, one __shfl_sync) are both ready.  band_base is monotone
+// in the column, so the band's top word at column p is band_base(p) in
+// closed form: each lane evaluates it for its own column, and a word that
+// leaves the band frees its lane for word a + BW, which enters BW steps
+// later from the all-insertion fill (sb = the old bottom word's sb after
+// the previous column + 32; the neighbour lane keeps that value one step
+// longer for it).  No state moves between lanes on a band shift.  The
+// read's plane words stay in registers while a lane keeps its word; the
+// path's column masks are staged by the whole warp, coalesced, into a
+// shared-memory ring 256 steps ahead, so nothing on the carry chain waits
+// for device memory.  The dump is stored read-major, [read][col][word]
+// (the wrapper hands out (P, bw, R) views): a column's words are
+// contiguous, which is what the walk kernel stages.
+//   A band that can move more than one word in a column (read more than 16
+// times longer than its path: scale > 16) needs the old bottom's sb from
+// several columns back; such a read runs the serial loop on lane 0 of its
+// warp, inside the same kernel, into the same layout.
+//   What bounds it on the H100: the P + RW + BW steps of the wavefront.
+// A step is ~80 instructions issued by one warp alone on its scheduler,
+// each waiting on the one before; the carry chain itself (the shuffle and
+// ~10 dependent integer ops) is a quarter of a step.  The time moves
+// neither with bw nor with the number of reads up to one warp per SM, so
+// the dump's stores (12 bytes per word per column, one sector per lane
+// and store) do not bind, and the dump's bytes at the memory rate lie 17
+// to 59 times below (PERF.md).
+//
+// polish_core_serial_launch (any bw; the wrapper takes it for bw 1, 2, 4,
+// 64, and the smoke run times it as the yardstick): one thread per read,
+// band state in registers, dump indexed [col][word][read] so a warp's
+// stores are coalesced.  A band shift of k words is k single-word shifts
+// that fill with bot_sb + 32 (t + 1).  Time does not fall with the number
+// of reads: it is one chain of P x bw dependent word steps.
+//
+// Both load the band's plane words directly (the Pallas kernel's rolling
+// window and its fast / slow branches only ever expose the first bw window
+// words, which equal the planes at the band's rows).  band_base rounds as
+// JAX float32 does: __fdiv_rn / __fmul_rn, truncation toward 0.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -31,6 +59,7 @@ namespace {
 
 constexpr int W = 32;
 constexpr uint32_t ONES = 0xFFFFFFFFu;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ int advance(uint32_t& vp, uint32_t& vn, int& sb,
                                        uint32_t eq, int hin) {
@@ -50,36 +79,50 @@ __device__ __forceinline__ int advance(uint32_t& vp, uint32_t& vn, int& sb,
   return hout;
 }
 
+// The band's top word per column: a closed form of the column, monotone.
 template <int BW>
-__global__ void __launch_bounds__(64)
-polish_core_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
-                   const uint32_t* __restrict__ path,     // (P, R)
-                   const int* __restrict__ read_len,      // (R,)
-                   const int* __restrict__ path_len,      // (R,)
-                   int R, int RW, int P,
-                   uint32_t* __restrict__ dvp,            // (P, BW, R)
-                   uint32_t* __restrict__ dvn,            // (P, BW, R)
-                   int* __restrict__ dsb,                 // (P, BW, R)
-                   int* __restrict__ dbase) {             // (P, R)
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int rlen = read_len[r];
-  const int plen = path_len[r];
-  const int pl1 = max(plen, 1);
-  const int rw_cap = (rlen + W - 1) / W;   // read_len >= 0
-  const int ub = max(rw_cap - BW, 0);
-  const float scale = __fdiv_rn((float)rlen, (float)pl1);
-
-  auto band_base = [&](int col) {
+struct Band {
+  int pl1, ub;
+  float scale;
+  __device__ Band(int rlen, int plen) {
+    pl1 = max(plen, 1);
+    const int rw_cap = (rlen + W - 1) / W;   // read_len >= 0
+    ub = max(rw_cap - BW, 0);
+    scale = __fdiv_rn((float)rlen, (float)pl1);
+  }
+  __device__ __forceinline__ int base(int col) const {
     const int cc = min(col, pl1 - 1);
     const float target = __fmul_rn((float)(cc + 1), scale);
     const int b = (int)__fmul_rn(target, 1.0f / W) - BW / 2;
     return min(max(b, 0), ub);
-  };
+  }
+};
 
+// Where word w of column col of read r lies in the dump.
+template <int BW, bool READ_MAJOR>
+__device__ __forceinline__ size_t dump_at(int col, int w, int r, int R,
+                                          int P) {
+  return READ_MAJOR ? ((size_t)r * P + col) * BW + w
+                    : ((size_t)col * BW + w) * R + r;
+}
+
+template <bool READ_MAJOR>
+__device__ __forceinline__ size_t base_at(int col, int r, int R, int P) {
+  return READ_MAJOR ? (size_t)r * P + col : (size_t)col * R + r;
+}
+
+// One read, column by column, by one thread.
+template <int BW, bool READ_MAJOR>
+__device__ void fill_serial(const uint32_t* __restrict__ planes,
+                            const uint32_t* __restrict__ path,
+                            int rlen, int plen, int r, int R, int RW, int P,
+                            uint32_t* __restrict__ dvp,
+                            uint32_t* __restrict__ dvn,
+                            int* __restrict__ dsb, int* __restrict__ dbase) {
+  const Band<BW> band(rlen, plen);
   uint32_t vp[BW], vn[BW];
   int sb[BW];
-  int base = band_base(0);
+  int base = band.base(0);
 #pragma unroll
   for (int w = 0; w < BW; ++w) {
     vp[w] = ONES; vn[w] = 0; sb[w] = base * W + (w + 1) * W;
@@ -87,7 +130,7 @@ polish_core_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
 
   for (int col = 0; col < P; ++col) {
     const uint32_t pmm = path[(size_t)col * R + r];
-    const int nb = max(band_base(col), base);
+    const int nb = max(band.base(col), base);
     const int shift = min(max(nb - base, 0), BW);
     const int bot = sb[BW - 1];
     for (int t = 0; t < shift; ++t) {      // slide the band by one word
@@ -108,52 +151,216 @@ polish_core_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
           if ((pmm >> k) & 1u) eq |= planes[((size_t)k * RW + row_w) * R + r];
       }
       hin = advance(vp[w], vn[w], sb[w], eq, hin);
-      const size_t o = ((size_t)col * BW + w) * R + r;
+      const size_t o = dump_at<BW, READ_MAJOR>(col, w, r, R, P);
       dvp[o] = vp[w];
       dvn[o] = vn[w];
       dsb[o] = sb[w];
     }
-    dbase[(size_t)col * R + r] = nb;
+    dbase[base_at<READ_MAJOR>(col, r, R, P)] = nb;
     base = nb;
   }
 }
 
 template <int BW>
-cudaError_t launch(const uint32_t* planes, const uint32_t* path,
-                   const int* read_len, const int* path_len, int R, int RW,
-                   int P, uint32_t* dvp, uint32_t* dvn, int* dsb, int* dbase,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(64)
+polish_core_serial_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
+                          const uint32_t* __restrict__ path,     // (P, R)
+                          const int* __restrict__ read_len,      // (R,)
+                          const int* __restrict__ path_len,      // (R,)
+                          int R, int RW, int P,
+                          uint32_t* __restrict__ dvp,            // (P, BW, R)
+                          uint32_t* __restrict__ dvn,            // (P, BW, R)
+                          int* __restrict__ dsb,                 // (P, BW, R)
+                          int* __restrict__ dbase) {             // (P, R)
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  fill_serial<BW, false>(planes, path, read_len[r], path_len[r], r, R, RW, P,
+                         dvp, dvn, dsb, dbase);
+}
+
+constexpr int RING_STEPS = 256;            // steps between ring refills
+constexpr int RING = 2 * RING_STEPS;       // path masks held (>= steps + BW)
+constexpr float MAX_WAVE_SCALE = 16.0f;    // above: shifts of > 1 word
+
+template <int BW>
+__global__ void __launch_bounds__(32)
+polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
+                        const uint32_t* __restrict__ path,     // (P, R)
+                        const int* __restrict__ read_len,      // (R,)
+                        const int* __restrict__ path_len,      // (R,)
+                        int R, int RW, int P,
+                        uint32_t* __restrict__ dvp,            // (R, P, BW)
+                        uint32_t* __restrict__ dvn,            // (R, P, BW)
+                        int* __restrict__ dsb,                 // (R, P, BW)
+                        int* __restrict__ dbase) {             // (R, P)
+  static_assert(BW >= 2 && BW <= 32 && RING >= RING_STEPS + BW, "band");
+  __shared__ uint8_t ring[RING];
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int rlen = read_len[r];
+  const int plen = path_len[r];
+  const Band<BW> band(rlen, plen);
+  // target moves by `scale` rows a column: up to 16 (plus float rounding
+  // far below 16) that is at most half a word, so the band's top moves by
+  // 0 or 1 words.  Beyond it, the read takes the serial loop.
+  if (!(band.scale <= MAX_WAVE_SCALE)) {
+    if (lane == 0)
+      fill_serial<BW, true>(planes, path, rlen, plen, r, R, RW, P, dvp, dvn,
+                            dsb, dbase);
+    return;
+  }
+
+  auto load_planes = [&](int a, uint32_t (&pw)[4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      pw[k] = (a >= 0 && a < RW) ? planes[((size_t)k * RW + a) * R + r] : 0u;
+  };
+
+  const int base0 = band.base(0);
+  const int s_end = P - 1 + band.base(P - 1) + BW - 1;   // last step
+  // this lane's word: the first a >= base0 with a mod BW == lane; lanes
+  // past the band never reach a column (p stays negative)
+  int a = lane < BW ? base0 + ((lane - base0) & (BW - 1)) : (1 << 29);
+  uint32_t pw[4];
+  load_planes(lane < BW ? a : -1, pw);
+  uint32_t vp = ONES, vn = 0;
+  int sb = 0, sb_prev = 0, hout = 0;
+  bool fresh = true;              // the word has not taken a column yet
+  int fill_hi = 0;                // first path column not yet in the ring
+  const int src = (lane - 1) & (BW - 1);
+
+  for (int S = base0; S <= s_end; S += RING_STEPS) {
+    // Column p is first read at step p + base(p), so the steps up to
+    // S + RING_STEPS - 1 read no column at or past S + RING_STEPS -
+    // base(fill_hi); a column is last read BW - 1 steps after its first,
+    // so the slot it overwrites (RING columns back) is done.
+    __syncwarp();
+    const int hi = min(P, S + RING_STEPS - band.base(min(fill_hi, P - 1)));
+    for (int p = fill_hi + lane; p < hi; p += 32)
+      ring[p & (RING - 1)] = (uint8_t)path[(size_t)p * R + r];
+    fill_hi = max(fill_hi, hi);
+    __syncwarp();
+
+    const int Se = min(S + RING_STEPS - 1, s_end);
+    for (int s = S; s <= Se; ++s) {
+      // the neighbour's carry (-1, 0, 1) and its sb before its last
+      // column, in one shuffle
+      const int nbr = __shfl_sync(FULL, sb_prev * 4 + (hout + 1), src);
+      const int nbr_hout = (nbr & 3) - 1;
+      const int nbr_sb_prev = nbr >> 2;
+      const int p = s - a;
+      if (p < 0 || p >= P) continue;
+      const int nb = band.base(p);
+      if (a < nb) {                 // left the band: take the next word
+        a += BW;
+        fresh = true;
+        load_planes(a, pw);
+        continue;
+      }
+      if (a >= nb + BW) continue;   // not in the band yet
+      if (fresh) {
+        // column 0 starts from the boundary column; a word that enters
+        // below the old bottom continues its all-insertion run
+        vp = ONES; vn = 0;
+        sb = p == 0 ? (a + 1) * W : nbr_sb_prev + W;
+        fresh = false;
+      }
+      const uint32_t pmm = ring[p & (RING - 1)];
+      uint32_t eq = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if ((pmm >> k) & 1u) eq |= pw[k];
+      const int hin = a == nb ? 1 : nbr_hout;
+      sb_prev = sb;
+      hout = advance(vp, vn, sb, eq, hin);
+      const size_t o = dump_at<BW, true>(p, a - nb, r, R, P);
+      dvp[o] = vp;
+      dvn[o] = vn;
+      dsb[o] = sb;
+      if (a == nb) dbase[base_at<true>(p, r, R, P)] = nb;
+    }
+  }
+}
+
+struct Args {
+  const uint32_t* planes;
+  const uint32_t* path;
+  const int* read_len;
+  const int* path_len;
+  int R, RW, P;
+  uint32_t* dvp;
+  uint32_t* dvn;
+  int* dsb;
+  int* dbase;
+  cudaStream_t stream;
+};
+
+template <int BW>
+cudaError_t launch_serial(const Args& a) {
   const int threads = 32;
-  const int blocks = (R + threads - 1) / threads;
-  polish_core_kernel<BW><<<blocks, threads, 0, stream>>>(
-      planes, path, read_len, path_len, R, RW, P, dvp, dvn, dsb, dbase);
+  const int blocks = (a.R + threads - 1) / threads;
+  polish_core_serial_kernel<BW><<<blocks, threads, 0, a.stream>>>(
+      a.planes, a.path, a.read_len, a.path_len, a.R, a.RW, a.P, a.dvp, a.dvn,
+      a.dsb, a.dbase);
   return cudaGetLastError();
+}
+
+template <int BW>
+cudaError_t launch_warp(const Args& a) {
+  polish_core_warp_kernel<BW><<<a.R, 32, 0, a.stream>>>(
+      a.planes, a.path, a.read_len, a.path_len, a.R, a.RW, a.P, a.dvp, a.dvn,
+      a.dsb, a.dbase);
+  return cudaGetLastError();
+}
+
+Args make_args(const void* planes, const void* path, const void* read_len,
+               const void* path_len, int R, int RW, int P, void* dvp,
+               void* dvn, void* dsb, void* dbase, void* stream) {
+  return Args{(const uint32_t*)planes, (const uint32_t*)path,
+              (const int*)read_len, (const int*)path_len, R, RW, P,
+              (uint32_t*)dvp, (uint32_t*)dvn, (int*)dsb, (int*)dbase,
+              (cudaStream_t)stream};
 }
 
 }  // namespace
 
+// Warp per read; the dump is written read-major: dvp / dvn / dsb as
+// (R, P, bw), dbase as (R, P).
 extern "C" int polish_core_launch(const void* planes, const void* path,
                                   const void* read_len, const void* path_len,
                                   int R, int RW, int P, int bw, void* dvp,
                                   void* dvn, void* dsb, void* dbase,
                                   void* stream) {
   if (R <= 0 || P <= 0) return 0;
-  auto args = [&](auto launcher) {
-    return launcher((const uint32_t*)planes, (const uint32_t*)path,
-                    (const int*)read_len, (const int*)path_len, R, RW, P,
-                    (uint32_t*)dvp, (uint32_t*)dvn, (int*)dsb, (int*)dbase,
-                    (cudaStream_t)stream);
-  };
-  cudaError_t err;
+  const Args a = make_args(planes, path, read_len, path_len, R, RW, P, dvp,
+                           dvn, dsb, dbase, stream);
   switch (bw) {
-    case 1: err = args(launch<1>); break;
-    case 2: err = args(launch<2>); break;
-    case 4: err = args(launch<4>); break;
-    case 8: err = args(launch<8>); break;
-    case 16: err = args(launch<16>); break;
-    case 32: err = args(launch<32>); break;
-    case 64: err = args(launch<64>); break;
+    case 8: return (int)launch_warp<8>(a);
+    case 16: return (int)launch_warp<16>(a);
+    case 32: return (int)launch_warp<32>(a);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
+}
+
+// Thread per read; the dump is written column-major: dvp / dvn / dsb as
+// (P, bw, R), dbase as (P, R).
+extern "C" int polish_core_serial_launch(const void* planes, const void* path,
+                                         const void* read_len,
+                                         const void* path_len, int R, int RW,
+                                         int P, int bw, void* dvp, void* dvn,
+                                         void* dsb, void* dbase,
+                                         void* stream) {
+  if (R <= 0 || P <= 0) return 0;
+  const Args a = make_args(planes, path, read_len, path_len, R, RW, P, dvp,
+                           dvn, dsb, dbase, stream);
+  switch (bw) {
+    case 1: return (int)launch_serial<1>(a);
+    case 2: return (int)launch_serial<2>(a);
+    case 4: return (int)launch_serial<4>(a);
+    case 8: return (int)launch_serial<8>(a);
+    case 16: return (int)launch_serial<16>(a);
+    case 32: return (int)launch_serial<32>(a);
+    case 64: return (int)launch_serial<64>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,21 +7,40 @@
 // from that cell back to (-1, -1), one step per edit op (ties: insertion,
 // then diagonal, then deletion), failing when no neighbour explains the
 // score, when the walk leaves the band, or at ops_cap steps; `touched`
-// records whether it ran along a band edge with DP rows beyond it.
+// records whether it ran along a band edge with DP rows beyond it.  The
+// 2-bit ops are packed on the fly, 16 per word, and written once a word
+// fills; the padding past n_ops is all-ones, as pack_ops2 makes it from
+// OP_NONE.  Row/word division that can see -1 is floor division.
 //
 // What bounds it on the H100: latency.  A walk is a chain of ~read + path
-// dependent steps, each a few cached loads from the dump (three cells:
-// diagonal, left, up) and the read planes; there is no arithmetic to
-// speak of.  As torch ops each step was ~100 small launches.
+// dependent steps, each a few loads (three cells: diagonal, left, up) and
+// ~100 instructions that one warp issues one after another; the bytes
+// (the dump words the walk touches, read once) lie far below (PERF.md).
 //
-// Design: one thread per read, the walk in registers, dump cells read
-// straight from device memory (the fill kernel just wrote them, so they
-// sit in L2).  The 2-bit ops are packed on the fly, 16 per word, and
-// written once a word fills; the padding past n_ops is all-ones, as
-// pack_ops2 makes it from OP_NONE.  Row/word division that can see -1 is
-// floor division.
+// Two entries, chosen by bw alone in ops/polish_kernel.py:
+//
+// polish_walk_launch (bw 8, 16, 32; dump read-major, [read][col][word], as
+// polish_core_launch writes it): one warp per read.  The walk only moves to
+// lower columns, so the warp stages the dump ahead of it: a tile is 33
+// columns (32 plus the column to the left, so a step's cells at cc and
+// cc - 1 always share a tile) with every band word of vp / vn / sb, the
+// band base and the path mask, copied with cp.async in 16-byte pieces into
+// shared memory.  Two tiles alternate: the next lower one is in flight
+// while the current one is walked, so a step's loads are shared-memory
+// loads, and a tile holds whole columns, so a cell lies outside it only by
+// column, never by word: BIGB means the band excludes the cell, nothing
+// else.  The read's plane word of the current row and the one below it
+// sit in registers.  All lanes take the same steps (broadcast loads, no
+// divergence); lane 0 writes the row, and all lanes write the padding.
+//
+// polish_walk_serial_launch (any bw; dump column-major, [col][word][read],
+// as polish_core_serial_launch writes it): one thread per read, dump cells
+// read straight from device memory, two chained loads a cell (base, then
+// the word) at a stride of R words.  Kept as the yardstick and for the
+// band widths the warp entry is not built for.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,51 +59,198 @@ __device__ __forceinline__ uint32_t above(int rr) {  // bits above row rr % 32
   return m < W - 1 ? (ONES << (m + 1)) : 0u;
 }
 
-struct Dump {
+__device__ __forceinline__ int word_score(int sb, uint32_t vp, uint32_t vn,
+                                          int rr) {
+  const uint32_t a = above(rr);
+  return sb - __popc(vp & a) + __popc(vn & a);
+}
+
+// The dump in device memory, column-major.
+struct GlobalDump {
   const uint32_t* vp;    // (P, bw, R)
   const uint32_t* vn;
   const int* sb;
   const int* base;       // (P, R)
+  const uint32_t* path;  // (P, R)
   int P, bw, R, r;
 
+  __device__ __forceinline__ void seek(int) {}
+  __device__ __forceinline__ int base_of(int cq) const {
+    return base[(size_t)cq * R + r];
+  }
+  __device__ __forceinline__ uint32_t path_of(int cq) const {
+    return path[(size_t)cq * R + r];
+  }
+  __device__ __forceinline__ int word(int cq, int w, int rr) const {
+    const size_t o = ((size_t)cq * bw + w) * R + r;
+    return word_score(sb[o], vp[o], vn[o], rr);
+  }
+  // DP cell (rr, cc), BIGB where the band of its column excludes it
   __device__ __forceinline__ int cell(int rr, int cc) const {
     if (rr < 0 && cc < 0) return 0;
     if (cc < 0) return rr + 1;
     if (rr < 0) return cc + 1;
     const int cq = min(cc, P - 1);
-    const int w = floordiv32(rr) - base[(size_t)cq * R + r];
+    const int w = floordiv32(rr) - base_of(cq);
     if (w < 0 || w >= bw) return BIGB;
-    const size_t o = ((size_t)cq * bw + w) * R + r;
-    const uint32_t a = above(rr);
-    return sb[o] - __popc(vp[o] & a) + __popc(vn[o] & a);
+    return word(cq, w, rr);
   }
 };
 
-__global__ void __launch_bounds__(64)
-polish_walk_kernel(Dump d, const uint32_t* __restrict__ planes,  // (4, RW, R)
-                   const uint32_t* __restrict__ path,            // (P, R)
-                   const int* __restrict__ read_len,
-                   const int* __restrict__ path_len, int RW,
-                   int max_steps, int ops_cap,
-                   long long* __restrict__ out) {   // (R, 3 + ops_cap / 16)
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= d.R) return;
-  d.r = r;
-  const int R = d.R, P = d.P, bw = d.bw;
-  const int rl = read_len[r];
-  const int pl = path_len[r];
+// The dump staged in shared memory by a warp, read-major, two tiles of
+// TILE + 1 columns.
+constexpr int TILE = 32;
+
+template <int BW>
+struct TileDump {
+  static constexpr int COLS = TILE + 1;
+  struct __align__(16) Buf {     // cp.async moves 16-byte pieces
+    uint32_t vp[COLS * BW];
+    uint32_t vn[COLS * BW];
+    int sb[COLS * BW];
+    int base[COLS];
+    uint32_t path[COLS];
+  };
+  Buf* buf;              // [2] in shared memory, 16-byte aligned
+  const uint32_t* gvp;   // this read's (P, bw) planes of the dump
+  const uint32_t* gvn;
+  const int* gsb;
+  const int* gbase;      // this read's (P,)
+  const uint32_t* gpath; // (P, R) + r
+  int P, bw, R, lane;
+  int cur, tile, lo;     // buffer, tile index and first column walked now
+  int lo_next;
+
+  __device__ __forceinline__ static int first_col(int t) {
+    return max(TILE * t - 1, 0);
+  }
+
+  // start the copy of tile t (columns TILE t - 1 .. TILE t + TILE - 1,
+  // cut to 0 .. P - 1) into buffer b
+  __device__ void fetch(int t, int b) {
+    const int c0 = first_col(t);
+    const int ncol = min(TILE * t + TILE - 1, P - 1) - c0 + 1;
+    Buf& d = buf[b];
+    const size_t g = (size_t)c0 * BW;
+    for (int i = lane; i < ncol * BW / 4; i += 32) {
+      __pipeline_memcpy_async(&d.vp[4 * i], gvp + g + 4 * i, 16);
+      __pipeline_memcpy_async(&d.vn[4 * i], gvn + g + 4 * i, 16);
+      __pipeline_memcpy_async(&d.sb[4 * i], gsb + g + 4 * i, 16);
+    }
+    for (int i = lane; i < ncol; i += 32) {
+      __pipeline_memcpy_async(&d.base[i], gbase + c0 + i, 4);
+      __pipeline_memcpy_async(&d.path[i], gpath + (size_t)(c0 + i) * R, 4);
+    }
+    __pipeline_commit();
+  }
+
+  __device__ void open(int cq) {        // first tile: the one holding cq
+    cur = 0;
+    tile = cq / TILE;
+    lo = first_col(tile);
+    fetch(tile, 0);
+    lo_next = lo;
+    if (tile > 0) {
+      lo_next = first_col(tile - 1);
+      fetch(tile - 1, 1);
+      __pipeline_wait_prior(1);         // the first tile has landed
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncwarp();
+  }
+
+  // make column cq (and cq - 1) readable: the walk moved one tile down
+  __device__ __forceinline__ void seek(int cq) {
+    if (cq / TILE == tile) return;
+    __pipeline_wait_prior(0);
+    __syncwarp();                       // every lane's pieces have landed,
+    cur ^= 1;                           // and no lane still reads the old
+    tile -= 1;
+    lo = lo_next;
+    if (tile > 0) {
+      lo_next = first_col(tile - 1);
+      fetch(tile - 1, cur ^ 1);
+    }
+  }
+
+  __device__ __forceinline__ int base_of(int cq) const {
+    return buf[cur].base[cq - lo];
+  }
+  __device__ __forceinline__ uint32_t path_of(int cq) const {
+    return buf[cur].path[cq - lo];
+  }
+  __device__ __forceinline__ int word(int cq, int w, int rr) const {
+    const Buf& d = buf[cur];
+    const int o = (cq - lo) * BW + w;
+    return word_score(d.sb[o], d.vp[o], d.vn[o], rr);
+  }
+  // DP cell (rr, cc), BIGB where the band of its column excludes it.
+  // Without a branch: the loads go to clamped places and the cases are
+  // selects, so the loads of a step's three cells are issued together
+  // and their latencies overlap.
+  __device__ __forceinline__ int cell(int rr, int cc) const {
+    const Buf& d = buf[cur];
+    const int j = min(max(min(cc, P - 1) - lo, 0), COLS - 1);
+    const int rc = max(rr, 0);
+    const int w = (rc >> 5) - d.base[j];
+    const int o = j * BW + min(max(w, 0), BW - 1);
+    int v = word_score(d.sb[o], d.vp[o], d.vn[o], rc);
+    v = (w < 0 || w >= BW) ? BIGB : v;
+    v = rr < 0 ? cc + 1 : v;
+    v = cc < 0 ? rr + 1 : v;
+    return (rr < 0 && cc < 0) ? 0 : v;
+  }
+};
+
+// The read's plane words of the walk's current row and of the word below.
+struct ReadPlanes {
+  const uint32_t* planes;   // (4, RW, R) + r
+  int RW, R;
+  int wq;                   // word held in cur (-1: none)
+  uint32_t cur[4], next[4];
+
+  __device__ __forceinline__ void load(int w, uint32_t (&dst)[4]) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      dst[b] = w >= 0 ? planes[((size_t)b * RW + w) * R] : 0u;
+  }
+  // plane bits of row rq (0 <= rq < 32 RW), as a 4-bit mask
+  __device__ __forceinline__ uint32_t bits(int rq) {
+    const int w = rq / W;
+    if (w != wq) {
+      if (w == wq - 1) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) cur[b] = next[b];
+      } else {
+        load(w, cur);
+      }
+      wq = w;
+      load(w - 1, next);
+    }
+    const int bit = rq % W;
+    return ((cur[0] >> bit) & 1u) | (((cur[1] >> bit) & 1u) << 1)
+           | (((cur[2] >> bit) & 1u) << 2) | (((cur[3] >> bit) & 1u) << 3);
+  }
+};
+
+// One read's score and walk.  `writer` lanes store the row's first words
+// and its ops; every lane of the `lanes` that run this together stores a
+// share of the padding.
+template <class Dump>
+__device__ void walk(Dump& d, ReadPlanes& rp, int rl, int pl, int RW,
+                     int max_steps, int ops_cap, long long* __restrict__ row,
+                     bool writer, int lane, int lanes) {
+  const int P = d.P, bw = d.bw;
   const int n_words = ops_cap / 16;
-  long long* row = out + (size_t)r * (3 + n_words);
 
   // global score: row rl - 1 at column pl - 1, word clamped into the band
   {
     const int last = min(max(pl - 1, 0), P - 1);
     const int rr = rl - 1;
-    const int wofs = min(max(floordiv32(rr) - d.base[(size_t)last * R + r],
-                             0), bw - 1);
-    const size_t o = ((size_t)last * bw + wofs) * R + r;
-    const uint32_t a = above(rr);
-    row[0] = d.sb[o] - __popc(d.vp[o] & a) + __popc(d.vn[o] & a);
+    const int wofs = min(max(floordiv32(rr) - d.base_of(last), 0), bw - 1);
+    const int score = d.word(last, wofs, rr);
+    if (writer) row[0] = score;
   }
 
   const int rw_cap = (rl + W - 1) / W;
@@ -96,20 +262,14 @@ polish_walk_kernel(Dump d, const uint32_t* __restrict__ planes,  // (4, RW, R)
   int k = 0;                       // ops emitted
   uint32_t word = ONES;            // ops word being filled
   for (int i = 0; i < max_steps && !done; ++i) {
+    if (cc >= 0) d.seek(min(cc, P - 1));
     const int dg = d.cell(rr - 1, cc - 1);
     const int lf = d.cell(rr, cc - 1);
     const int up = d.cell(rr - 1, cc);
     int sub = 1;
     if (rr >= 0 && cc >= 0) {
-      const uint32_t pm = path[(size_t)min(cc, P - 1) * R + r];
-      const int rq = min(rr, RW * W - 1);
-      const int wq = rq / W, bit = rq % W;
-      uint32_t m = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        m |= ((planes[((size_t)b * RW + wq) * R + r] >> bit) & 1u)
-             & ((pm >> b) & 1u);
-      sub = m ? 0 : 1;
+      const uint32_t pm = d.path_of(min(cc, P - 1));
+      sub = (rp.bits(min(rr, RW * W - 1)) & pm & 0xFu) ? 0 : 1;
     }
     const bool can_diag = rr >= 0 && cc >= 0 && s == dg + sub;
     const bool can_left = cc >= 0 && s == lf + 1;
@@ -121,7 +281,7 @@ polish_walk_kernel(Dump d, const uint32_t* __restrict__ planes,  // (4, RW, R)
     else { fail = true; break; }
     if (i >= ops_cap) { fail = true; break; }
     if (rr >= 0 && cc >= 0) {
-      const int base_c = d.base[(size_t)min(cc, P - 1) * R + r];
+      const int base_c = d.base_of(min(cc, P - 1));
       const int w = min(rr, RW * W - 1) / W - base_c;
       if ((w <= 0 && base_c > 0) || (w >= bw - 1 && base_c + bw < rw_cap))
         touch = true;
@@ -132,19 +292,90 @@ polish_walk_kernel(Dump d, const uint32_t* __restrict__ planes,  // (4, RW, R)
     const int sh = 2 * (k % 16);
     word = (word & ~(3u << sh)) | ((uint32_t)op << sh);
     ++k;
-    if (k % 16 == 0) { row[3 + k / 16 - 1] = (long long)word; word = ONES; }
+    if (k % 16 == 0) {
+      if (writer) row[3 + k / 16 - 1] = (long long)word;
+      word = ONES;
+    }
     done = rr < 0 && cc < 0;
   }
   int wi = k / 16;
-  if (k % 16) row[3 + wi++] = (long long)word;
-  for (; wi < n_words; ++wi) row[3 + wi] = (long long)ONES;
-  const bool complete = done && !fail && rr < 0 && cc < 0;
-  row[1] = complete ? k : -1;
-  row[2] = touch ? 1 : 0;
+  if (k % 16) {
+    if (writer) row[3 + wi] = (long long)word;
+    ++wi;
+  }
+  for (wi += lane; wi < n_words; wi += lanes) row[3 + wi] = (long long)ONES;
+  if (writer) {
+    const bool complete = done && !fail && rr < 0 && cc < 0;
+    row[1] = complete ? k : -1;
+    row[2] = touch ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(64)
+polish_walk_serial_kernel(GlobalDump d,
+                          const uint32_t* __restrict__ planes,  // (4, RW, R)
+                          const int* __restrict__ read_len,
+                          const int* __restrict__ path_len, int RW,
+                          int max_steps, int ops_cap,
+                          long long* __restrict__ out) {  // (R, 3 + cap / 16)
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= d.R) return;
+  d.r = r;
+  ReadPlanes rp{planes + r, RW, d.R, -1, {}, {}};
+  walk(d, rp, read_len[r], path_len[r], RW, max_steps, ops_cap,
+       out + (size_t)r * (3 + ops_cap / 16), true, 0, 1);
+}
+
+template <int BW>
+__global__ void __launch_bounds__(32)
+polish_walk_warp_kernel(const uint32_t* __restrict__ dvp,     // (R, P, BW)
+                        const uint32_t* __restrict__ dvn,
+                        const int* __restrict__ dsb,
+                        const int* __restrict__ dbase,        // (R, P)
+                        const uint32_t* __restrict__ planes,  // (4, RW, R)
+                        const uint32_t* __restrict__ path,    // (P, R)
+                        const int* __restrict__ read_len,
+                        const int* __restrict__ path_len, int R, int RW,
+                        int P, int max_steps, int ops_cap,
+                        long long* __restrict__ out) {  // (R, 3 + cap / 16)
+  __shared__ typename TileDump<BW>::Buf buf[2];
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x;
+  const size_t rp_off = (size_t)r * P;
+  TileDump<BW> d{buf, dvp + rp_off * BW, dvn + rp_off * BW,
+                 dsb + rp_off * BW, dbase + rp_off, path + r, P, BW, R,
+                 lane, 0, 0, 0, 0};
+  const int rl = read_len[r];
+  const int pl = path_len[r];
+  d.open(min(max(pl - 1, 0), P - 1));
+  ReadPlanes rp{planes + r, RW, R, -1, {}, {}};
+  walk(d, rp, rl, pl, RW, max_steps, ops_cap,
+       out + (size_t)r * (3 + ops_cap / 16), lane == 0, lane, 32);
+}
+
+template <int BW>
+cudaError_t launch_warp(const void* dvp, const void* dvn, const void* dsb,
+                        const void* dbase, const void* planes,
+                        const void* path, const void* read_len,
+                        const void* path_len, int R, int RW, int P,
+                        int max_steps, int ops_cap, void* out,
+                        cudaStream_t stream) {
+  polish_walk_warp_kernel<BW><<<R, 32, 0, stream>>>(
+      (const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
+      (const int*)dbase, (const uint32_t*)planes, (const uint32_t*)path,
+      (const int*)read_len, (const int*)path_len, R, RW, P, max_steps,
+      ops_cap, (long long*)out);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int P, int bw, int ops_cap) {
+  return P <= 0 || bw <= 0 || ops_cap <= 0 || ops_cap % 16;
 }
 
 }  // namespace
 
+// Warp per read over a read-major dump: dvp / dvn / dsb (R, P, bw), dbase
+// (R, P).
 extern "C" int polish_walk_launch(const void* dvp, const void* dvn,
                                   const void* dsb, const void* dbase,
                                   const void* planes, const void* path,
@@ -152,14 +383,38 @@ extern "C" int polish_walk_launch(const void* dvp, const void* dvn,
                                   int R, int RW, int P, int bw, int max_steps,
                                   int ops_cap, void* out, void* stream) {
   if (R <= 0) return 0;
-  if (P <= 0 || bw <= 0 || ops_cap <= 0 || ops_cap % 16)
-    return (int)cudaErrorInvalidValue;
-  Dump d{(const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
-         (const int*)dbase, P, bw, R, 0};
+  if (bad_sizes(P, bw, ops_cap)) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto launcher) {
+    return (int)launcher(dvp, dvn, dsb, dbase, planes, path, read_len,
+                         path_len, R, RW, P, max_steps, ops_cap, out,
+                         (cudaStream_t)stream);
+  };
+  switch (bw) {
+    case 8: return go(launch_warp<8>);
+    case 16: return go(launch_warp<16>);
+    case 32: return go(launch_warp<32>);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Thread per read over a column-major dump: dvp / dvn / dsb (P, bw, R),
+// dbase (P, R).
+extern "C" int polish_walk_serial_launch(const void* dvp, const void* dvn,
+                                         const void* dsb, const void* dbase,
+                                         const void* planes, const void* path,
+                                         const void* read_len,
+                                         const void* path_len, int R, int RW,
+                                         int P, int bw, int max_steps,
+                                         int ops_cap, void* out,
+                                         void* stream) {
+  if (R <= 0) return 0;
+  if (bad_sizes(P, bw, ops_cap)) return (int)cudaErrorInvalidValue;
+  GlobalDump d{(const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
+               (const int*)dbase, (const uint32_t*)path, P, bw, R, 0};
   const int threads = 32;
   const int blocks = (R + threads - 1) / threads;
-  polish_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      d, (const uint32_t*)planes, (const uint32_t*)path, (const int*)read_len,
+  polish_walk_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      d, (const uint32_t*)planes, (const int*)read_len,
       (const int*)path_len, RW, max_steps, ops_cap, (long long*)out);
   return (int)cudaGetLastError();
 }

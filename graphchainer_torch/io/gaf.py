@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import List
 
-from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
+from graphchainer_torch.graph.alignment_graph import AlignmentGraph
 from graphchainer_torch.align import emit as emit_mod
 from graphchainer_torch.align.emit import OP_MATCH, cigar_string
 from graphchainer_torch.models.chainer import ReadAlignment

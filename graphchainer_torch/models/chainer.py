@@ -28,13 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from graphchainer_tpu import constants, native
-from graphchainer_tpu.graph.alignment_graph import AlignmentGraph
-from graphchainer_tpu.graph.mpc import MPCIndex
-from graphchainer_tpu.index.minimizer import MinimizerIndex
-from graphchainer_tpu.utils import timers
-from graphchainer_tpu.utils.seq import match_masks
-from graphchainer_torch import native_glue
+from graphchainer_torch import constants, native
 from graphchainer_torch.align import polish
 from graphchainer_torch.align.anchors import (GraphTensors,
                                               assemble_batch_cols,
@@ -42,6 +36,11 @@ from graphchainer_torch.align.anchors import (GraphTensors,
 from graphchainer_torch.align.chaining import batch_arrays_cols
 from graphchainer_torch.ops import frag_align
 from graphchainer_torch.ops.chain_scan import chain_scan
+from graphchainer_torch.graph.alignment_graph import AlignmentGraph
+from graphchainer_torch.graph.mpc import MPCIndex
+from graphchainer_torch.index.minimizer import MinimizerIndex
+from graphchainer_torch.utils import timers
+from graphchainer_torch.utils.seq import match_masks
 
 
 @dataclass
@@ -149,7 +148,7 @@ class ChainerModel:
 
     def _fragment_jobs_cols(self, reads: Sequence[Tuple[str, str]]):
         cfg = self.cfg
-        return native_glue.seed_window_batch(
+        return native.seed_window_batch(
             self.index, self.gx, reads, cfg.seed_density,
             cfg.colinear_split_len, cfg.colinear_split_gap,
             cfg.seeds_per_fragment)

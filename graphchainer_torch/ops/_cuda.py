@@ -2,9 +2,10 @@
 
 The kernels are compiled at first use with nvcc for sm_90a into one
 shared library with a plain C interface and loaded with ctypes: no
-PyTorch headers, so the build takes seconds.  The library lands in
-graphchainer_torch/_build/ under a name keyed by a hash of the sources,
-behind a file lock, so concurrent processes build it once.
+PyTorch headers, so the build takes seconds.  Each source is compiled by
+an nvcc of its own, all started together, and the objects are linked
+into graphchainer_torch/_build/ under a name keyed by a hash of the
+sources, behind a file lock, so concurrent processes build it once.
 
 Each wrapper counts the launches of its kernel here (thread-safe: the
 pipeline runs batches from a thread pool).  A run resets the counts,
@@ -14,19 +15,19 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
-import time
+
+from graphchainer_torch import _buildlib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("frag_core.cu", "polish_core.cu", "polish_walk.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -34,7 +35,8 @@ build_seconds = None        # wall time of the build that produced the
                             # loaded library (0.0 when it was already built)
 
 _count_lock = threading.Lock()
-_launches = {"frag_core": 0, "polish_core": 0, "polish_walk": 0}
+_launches = {"frag_core": 0, "polish_core": 0, "polish_walk": 0,
+             "polish_core_serial": 0, "polish_walk_serial": 0}
 
 
 def count_launch(name: str) -> None:
@@ -62,30 +64,29 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libgct_kernels_{h.hexdigest()[:16]}.so")
+    return _buildlib.hashed_path(
+        "gct_kernels", [os.path.join(CSRC, s) for s in SOURCES], NVCC_FLAGS)
 
 
-def _build(so: str) -> float:
-    import fcntl
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        if os.path.exists(so):
-            return 0.0
-        t0 = time.perf_counter()
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-               + [os.path.join(CSRC, s) for s in SOURCES])
-        r = subprocess.run(cmd, capture_output=True, text=True)
+def _make(out: str) -> None:
+    """One nvcc per source, side by side, then the link."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_buildlib.BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s[:-3] + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        bad = [f"{s} ({p.returncode}):\n{log}"
+               for s, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        if bad:
+            raise RuntimeError("nvcc failed: " + "\n".join(bad))
+        r = subprocess.run([nvcc, "-shared", "-o", out] + objs,
+                           capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
-        return time.perf_counter() - t0
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
 
 
 def lib() -> ctypes.CDLL:
@@ -97,15 +98,18 @@ def lib() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so = library_path()
-        secs = _build(so) if not os.path.exists(so) else 0.0
+        secs = (_buildlib.build_once(so, _make) if not os.path.exists(so)
+                else 0.0)
         L = ctypes.CDLL(so)
         P, I = ctypes.c_void_p, ctypes.c_int
         L.frag_core_launch.restype = I
         L.frag_core_launch.argtypes = [P] * 7 + [I] * 5 + [P] * 4 + [P]
-        L.polish_core_launch.restype = I
-        L.polish_core_launch.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
-        L.polish_walk_launch.restype = I
-        L.polish_walk_launch.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
+        for fn in (L.polish_core_launch, L.polish_core_serial_launch):
+            fn.restype = I
+            fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
+        for fn in (L.polish_walk_launch, L.polish_walk_serial_launch):
+            fn.restype = I
+            fn.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
         L.gct_error_string.restype = ctypes.c_char_p
         L.gct_error_string.argtypes = [I]
         build_seconds = secs

@@ -9,6 +9,15 @@ myers.u32).  polish_walk() reads the score and walks the backtrace over
 that dump into the packed rows of linear_align._polish_walk_t.  Each runs
 its plain torch version on a CPU tensor and launches its kernel on a CUDA
 tensor.
+
+Each kernel has two entries, and the band width alone decides which one
+a call takes (entry_for): the warp-per-read entries are built for bw 8,
+16 and 32, the widths of the polish band ramp; every other width of
+BAND_WORDS takes the thread-per-read entries.  The warp entries keep the
+dump read-major in memory, (R, P, bw) and (R, P), and the serial entries
+column-major, (P, bw, R) and (P, R); polish_core returns (P, bw, R) /
+(P, R) views either way, equal element for element, and polish_walk
+copies a dump that does not lie the way its entry reads it.
 """
 from __future__ import annotations
 
@@ -18,7 +27,27 @@ from graphchainer_torch.ops import _cuda
 from graphchainer_torch.ops import linear_align as _la
 from graphchainer_torch.ops.myers import to_i32_bits
 
-BAND_WORDS = (1, 2, 4, 8, 16, 32, 64)   # band widths the kernel is built for
+BAND_WORDS = (1, 2, 4, 8, 16, 32, 64)   # band widths the kernels are built for
+WARP_BAND_WORDS = (8, 16, 32)           # ... with a warp per read
+ENTRIES = ("warp", "serial")
+
+
+def entry_for(bw: int) -> str:
+    """The kernel entry a band width takes."""
+    if bw not in BAND_WORDS:
+        raise ValueError(f"polish kernels: bw={bw} not in {BAND_WORDS}")
+    return "warp" if bw in WARP_BAND_WORDS else "serial"
+
+
+def _entry(bw: int, entry) -> str:
+    """entry_for(bw), or the entry a caller that times one design against
+    the other asks for."""
+    if entry is None:
+        return entry_for(bw)
+    if entry not in ENTRIES or (entry == "warp"
+                                and bw not in WARP_BAND_WORDS):
+        raise ValueError(f"polish kernels: no {entry!r} entry for bw={bw}")
+    return entry
 
 
 def polish_core(planes_t, path_t, read_len, path_len, bw: int):
@@ -31,10 +60,10 @@ def polish_core(planes_t, path_t, read_len, path_len, bw: int):
     return polish_core_cuda(*(a.contiguous() for a in args), bw)
 
 
-def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
+def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int,
+                     entry=None):
     """Launch the kernel on int32 CUDA tensors (words as bit patterns)."""
-    if bw not in BAND_WORDS:
-        raise ValueError(f"polish_core: bw={bw} not in {BAND_WORDS}")
+    entry = _entry(bw, entry)
     _, RW, R = planes_t.shape
     P = path_t.shape[0]
     chk = _cuda.require_cuda_int32
@@ -43,19 +72,27 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
     chk("read_len", read_len, (R,))
     chk("path_len", path_len, (R,))
     dev = planes_t.device
-    dvp = torch.empty((P, bw, R), dtype=torch.int32, device=dev)
-    dvn = torch.empty((P, bw, R), dtype=torch.int32, device=dev)
-    dsb = torch.empty((P, bw, R), dtype=torch.int32, device=dev)
-    dbase = torch.empty((P, R), dtype=torch.int32, device=dev)
+    warp = entry == "warp"
+    word_shape = (R, P, bw) if warp else (P, bw, R)
+    dvp = torch.empty(word_shape, dtype=torch.int32, device=dev)
+    dvn = torch.empty(word_shape, dtype=torch.int32, device=dev)
+    dsb = torch.empty(word_shape, dtype=torch.int32, device=dev)
+    dbase = torch.empty((R, P) if warp else (P, R), dtype=torch.int32,
+                        device=dev)
     if R and P:
         L = _cuda.lib()
-        rc = L.polish_core_launch(
+        launch = L.polish_core_launch if warp else L.polish_core_serial_launch
+        rc = launch(
             planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
             path_len.data_ptr(), R, RW, P, bw, dvp.data_ptr(),
             dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
             _cuda.stream_ptr(planes_t))
-        _cuda.check(rc, "polish_core")
-        _cuda.count_launch("polish_core")
+        name = "polish_core" if warp else "polish_core_serial"
+        _cuda.check(rc, name)
+        _cuda.count_launch(name)
+    if warp:
+        return (dvp.permute(1, 2, 0), dvn.permute(1, 2, 0),
+                dsb.permute(1, 2, 0), dbase.permute(1, 0))
     return dvp, dvn, dsb, dbase
 
 
@@ -66,18 +103,30 @@ def polish_walk(dvp, dvn, dsb, dbase, planes_t, path_t, read_len, path_len,
     if not dvp.is_cuda:
         return _la._polish_walk_t(dvp, dvn, dsb, dbase, planes_t, path_t,
                                   read_len, path_len, bw, max_steps, ops_cap)
-    args = (to_i32_bits(dvp), to_i32_bits(dvn), dsb.to(torch.int32),
-            dbase.to(torch.int32), to_i32_bits(planes_t),
-            to_i32_bits(path_t), read_len.to(torch.int32),
-            path_len.to(torch.int32))
-    return polish_walk_cuda(*(a.contiguous() for a in args), bw, max_steps,
-                            ops_cap)
+    dump = (to_i32_bits(dvp), to_i32_bits(dvn), dsb.to(torch.int32),
+            dbase.to(torch.int32))
+    args = (to_i32_bits(planes_t), to_i32_bits(path_t),
+            read_len.to(torch.int32), path_len.to(torch.int32))
+    return polish_walk_cuda(*dump, *(a.contiguous() for a in args), bw,
+                            max_steps, ops_cap)
+
+
+def _stored(t, warp: bool):
+    """A (P, bw, R) or (P, R) dump tensor as its entry reads it from
+    memory: read-major for the warp entry, as it is for the serial one.
+    No copy where polish_core's matching entry wrote it."""
+    if warp:
+        t = t.permute(2, 0, 1) if t.dim() == 3 else t.permute(1, 0)
+    return t.contiguous()
 
 
 def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
-                     path_len, bw: int, max_steps: int, ops_cap: int = 0):
+                     path_len, bw: int, max_steps: int, ops_cap: int = 0,
+                     entry=None):
     """Launch the walk kernel on int32 CUDA tensors (words as bit
-    patterns)."""
+    patterns); the dump tensors are (P, bw, R) / (P, R), in either
+    memory order."""
+    entry = _entry(bw, entry)
     if not ops_cap or ops_cap > max_steps:
         ops_cap = max_steps
     if ops_cap % 16:
@@ -85,10 +134,19 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
                          "of 16")
     P, _, R = dvp.shape
     RW = planes_t.shape[1]
+    warp = entry == "warp"
     chk = _cuda.require_cuda_int32
     for name, t in (("dump_vp", dvp), ("dump_vn", dvn), ("dump_sb", dsb)):
-        chk(name, t, (P, bw, R))
-    chk("dump_base", dbase, (P, R))
+        if tuple(t.shape) != (P, bw, R):
+            raise ValueError(f"{name}: expected shape {(P, bw, R)}, got "
+                             f"{tuple(t.shape)}")
+    if tuple(dbase.shape) != (P, R):
+        raise ValueError(f"dump_base: expected shape {(P, R)}, got "
+                         f"{tuple(dbase.shape)}")
+    dvp, dvn, dsb, dbase = (_stored(t, warp) for t in (dvp, dvn, dsb, dbase))
+    for name, t in (("dump_vp", dvp), ("dump_vn", dvn), ("dump_sb", dsb),
+                    ("dump_base", dbase)):
+        chk(name, t)
     chk("planes_t", planes_t, (4, RW, R))
     chk("path_t", path_t, (P, R))
     chk("read_len", read_len, (R,))
@@ -96,11 +154,14 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
     out = torch.empty((R, 3 + ops_cap // 16), dtype=torch.int64,
                       device=dvp.device)
     if R:
-        rc = _cuda.lib().polish_walk_launch(
+        L = _cuda.lib()
+        launch = L.polish_walk_launch if warp else L.polish_walk_serial_launch
+        rc = launch(
             dvp.data_ptr(), dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
             planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
             path_len.data_ptr(), R, RW, P, bw, max_steps, ops_cap,
             out.data_ptr(), _cuda.stream_ptr(dvp))
-        _cuda.check(rc, "polish_walk")
-        _cuda.count_launch("polish_walk")
+        name = "polish_walk" if warp else "polish_walk_serial"
+        _cuda.check(rc, name)
+        _cuda.count_launch(name)
     return out

@@ -19,13 +19,13 @@ from typing import List, Optional
 
 import numpy as np
 
-from graphchainer_tpu.graph.alignment_graph import (AlignmentGraph,
+from graphchainer_torch.graph.alignment_graph import (AlignmentGraph,
                                                     build_alignment_graph)
-from graphchainer_tpu.graph.mpc import MPCIndex, build_mpc
-from graphchainer_tpu.index.minimizer import MinimizerIndex, build_index
-from graphchainer_tpu.io import fastq
-from graphchainer_tpu.io.gfa import load_gfa
-from graphchainer_tpu.utils import timers
+from graphchainer_torch.graph.mpc import MPCIndex, build_mpc
+from graphchainer_torch.index.minimizer import MinimizerIndex, build_index
+from graphchainer_torch.io import fastq
+from graphchainer_torch.io.gfa import load_gfa
+from graphchainer_torch.utils import timers
 from graphchainer_torch.io import gaf
 from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
 

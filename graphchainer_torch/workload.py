@@ -6,6 +6,9 @@ generator, and pbsim-like reads of ~N(read_len, read_len/10) at 10%
 error drawn from one source-to-sink path.  build_bench_graph is a copy of
 bench.py:165-200, so this package does not import bench.py (which pulls
 in jax).
+
+polish_hard_pairs makes the (read, path) pairs that the polish kernels
+must survive, for the CPU tests (small) and the smoke run (full size).
 """
 from __future__ import annotations
 
@@ -13,11 +16,12 @@ import time
 
 import numpy as np
 
-from graphchainer_tpu.graph.alignment_graph import build_alignment_graph
-from graphchainer_tpu.graph.mpc import build_mpc
-from graphchainer_tpu.graph.simulate import generate_path, simulate_reads
-from graphchainer_tpu.index.minimizer import build_index
-from graphchainer_tpu.io.gfa import Bigraph
+from graphchainer_torch.graph.alignment_graph import build_alignment_graph
+from graphchainer_torch.graph.mpc import build_mpc
+from graphchainer_torch.graph.simulate import (generate_path, mutate_read,
+                                               simulate_reads)
+from graphchainer_torch.index.minimizer import build_index
+from graphchainer_torch.io.gfa import Bigraph
 
 
 def build_bench_graph(rng, total_bp: int) -> Bigraph:
@@ -72,3 +76,48 @@ def bench_workload(graph_bp: int = 60_000, n_reads: int = 960,
     reads = simulate_reads(path_seq, n_reads, read_len, seed=11,
                            error_rate=0.10, len_std=read_len // 10)
     return g, mpc, index, path_seq, reads, build_s
+
+
+def polish_hard_pairs(seed: int, n_plain: int, length: int, indel: int = 200):
+    """(label, read, path) triples for the polish fill and walk: `n_plain`
+    reads of ~`length` bp at 10% error against their true path, mixed
+    with the cases a kernel must get right:
+      multi_shift   path of length // 40: the band moves several words in
+                    a column (read / path ratio above 32)
+      steep         path of length // 20: ratio between 16 and 32, one
+                    word a column on most columns
+      short_path    path of 48 bp, far below the padded column count
+      deletion      `indel` read bases missing: the walk runs along a
+                    band edge of a narrow band, or leaves it
+      insertion     `indel` extra read bases, the other edge
+      empty_read / empty_path   length 0
+    The plain reads sit between them, so a batch mixes both."""
+    rng = np.random.default_rng(seed)
+
+    def rand_seq(n):
+        return "".join(rng.choice(list("ACGT"), n))
+
+    def noisy(seq):
+        return mutate_read(rng, seq, sub=0.1 / 3, ins=0.1 / 3, dele=0.1 / 3)
+
+    out = []
+    for i in range(n_plain):
+        path = rand_seq(max(50, int(rng.normal(length, length // 10))))
+        out.append((f"plain{i}", noisy(path), path))
+    path = rand_seq(length)
+    read = noisy(path)
+    half = length // 2
+    hard = [
+        ("multi_shift", read, path[:max(length // 40, 1)]),
+        ("steep", read, path[:max(length // 20, 1)]),
+        ("short_path", read, path[:48]),
+        ("deletion", path[:half] + path[half + indel:], path),
+        ("insertion", path[:half] + rand_seq(indel) + path[half:], path),
+        ("empty_read", "", path[:length // 3]),
+        ("empty_path", read[:length // 3], ""),
+    ]
+    # interleave: plain, hard, plain, hard, ...
+    mixed = []
+    for i in range(max(len(out), len(hard))):
+        mixed += out[i:i + 1] + hard[i:i + 1]
+    return mixed

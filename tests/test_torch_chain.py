@@ -14,6 +14,7 @@ from graphchainer_torch.ops.chain_scan import chain_scan
 
 from test_chaining import random_anchors
 from test_mpc import random_dag_bigraph
+from test_torch_common import port_graph, port_mpc
 
 
 def make_case(seed, with_ties):
@@ -47,7 +48,8 @@ def flat(per_read):
 def test_chain_scan_matches_jax_and_oracle(seed, with_ties):
     g, mpc, per_read = make_case(seed, with_ties)
     counts, s, e, ax, ay = flat(per_read)
-    arrs = TCH.batch_arrays_cols(g, mpc, counts, s, e, ax, ay)
+    arrs = TCH.batch_arrays_cols(port_graph(g), port_mpc(mpc), counts, s, e,
+                                 ax, ay)
     got = chain_scan(**arrs, device="cpu")
 
     jarrs = JCH.batch_arrays_cols(g, mpc, counts, s, e, ax, ay,

@@ -20,6 +20,7 @@ from graphchainer_tpu.graph.mpc import build_mpc
 from graphchainer_tpu.graph.simulate import generate_path, simulate_reads
 from graphchainer_tpu.index.minimizer import build_index
 from graphchainer_tpu.utils.seq import match_masks
+from graphchainer_torch import convert
 from graphchainer_torch.align.anchors import level_bucket
 
 from test_mpc import random_dag_bigraph
@@ -56,6 +57,27 @@ def slice_case():
     return g, mpc, index, path_seq, reads
 
 
+def port_graph(g):
+    """The port's AlignmentGraph with the fields of the JAX package's."""
+    return convert.from_reference_graph(vars(g))
+
+
+def port_mpc(mpc):
+    return convert.from_reference_mpc(vars(mpc))
+
+
+def port_index(index):
+    return convert.from_reference_index(vars(index))
+
+
+@functools.lru_cache(maxsize=None)
+def slice_case_port():
+    """slice_case() with the graph and both indices as the port's own
+    classes, carried across by convert.py."""
+    g, mpc, index, path_seq, reads = slice_case()
+    return port_graph(g), port_mpc(mpc), port_index(index), path_seq, reads
+
+
 @functools.lru_cache(maxsize=None)
 def frag_batch(B: int, max_in: int = 4, slack: int = 8):
     """The port's fragment batch of slice_case()'s reads: (model, jobs,
@@ -64,7 +86,7 @@ def frag_batch(B: int, max_in: int = 4, slack: int = 8):
     assemble_batch_cols."""
     from graphchainer_torch.align.anchors import assemble_batch_cols
     from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
-    g, mpc, index, _, reads = slice_case()
+    g, mpc, index, _, reads = slice_case_port()
     model = ChainerModel(g, mpc, index, ChainerConfig(band_slots=B),
                          device="cpu")
     jobs, frags, _ = model._fragment_jobs_cols(reads)
@@ -134,17 +156,24 @@ def polish_arrays(rng, R, RMAX, PMAX, err=0.08):
                 read.insert(p, str(rng.choice(list("ACGT"))))
         reads.append("".join(read)[:RMAX])
         paths.append(path)
+    return pack_polish_pairs(list(zip(reads, paths)), RMAX, PMAX)
+
+
+def pack_polish_pairs(pairs, RMAX, PMAX):
+    """(read, path) strings as lane-major polish-core inputs: planes_t
+    (4, RMAX/32, R), path_t (PMAX, R), read and path lengths."""
+    R = len(pairs)
     planes_t = np.zeros((4, RMAX // 32, R), np.uint32)
     path_t = np.zeros((PMAX, R), np.uint32)
-    for i, (rd, pt) in enumerate(zip(reads, paths)):
+    for i, (rd, pt) in enumerate(pairs):
         mm = match_masks(rd)
         for j, v in enumerate(mm):
             for b in range(4):
                 if (v >> b) & 1:
                     planes_t[b, j // 32, i] |= np.uint32(1) << (j % 32)
         path_t[:len(pt), i] = match_masks(pt)
-    return (planes_t, path_t, np.array([len(r) for r in reads], np.int32),
-            np.array([len(p) for p in paths], np.int32))
+    return (planes_t, path_t, np.array([len(r) for r, _ in pairs], np.int32),
+            np.array([len(p) for _, p in pairs], np.int32))
 
 
 def mixed_batch():
@@ -173,21 +202,32 @@ _PORT_MODULES = [
     "graphchainer_torch.ops.linear_align",
     "graphchainer_torch.ops.polish_kernel",
     "graphchainer_torch.ops.chain_scan", "graphchainer_torch.ops.myers",
+    "graphchainer_torch.ops._cuda",
     "graphchainer_torch.align.anchors", "graphchainer_torch.align.chaining",
     "graphchainer_torch.align.polish", "graphchainer_torch.align.emit",
-    "graphchainer_torch.io.gaf", "graphchainer_torch.native_glue",
-    "graphchainer_torch.workload",
+    "graphchainer_torch.io.gaf", "graphchainer_torch.io.gfa",
+    "graphchainer_torch.io.fastq", "graphchainer_torch.native",
+    "graphchainer_torch.constants", "graphchainer_torch.convert",
+    "graphchainer_torch.utils.bits", "graphchainer_torch.utils.seq",
+    "graphchainer_torch.utils.timers",
+    "graphchainer_torch.graph.alignment_graph",
+    "graphchainer_torch.graph.mpc", "graphchainer_torch.graph.simulate",
+    "graphchainer_torch.index.minimizer", "graphchainer_torch.workload",
+    "chip_smoke",
 ]
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax blocked."""
+    """Every module of the port, and chip_smoke, imports with jax and the
+    JAX package both blocked."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['graphchainer_tpu'] = None\n"
             f"for m in {_PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m, v in sys.modules.items()\n"
-            "       if m.startswith('jax') and v is not None]\n"
+            "       if m.split('.')[0] in ('jax', 'graphchainer_tpu')\n"
+            "       and v is not None]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -198,19 +238,22 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """No file of the port names jax in an import."""
-    root = os.path.join(REPO, "graphchainer_torch")
+    """No file of the port, nor chip_smoke.py, names jax or the JAX
+    package in an import."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(REPO,
+                                                  "graphchainer_torch")):
+        files += [os.path.join(dirpath, f) for f in names
+                  if f.endswith(".py")]
+    banned = ("import jax", "from jax", "import graphchainer_tpu",
+              "from graphchainer_tpu")
     offenders = []
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                p = os.path.join(dirpath, f)
-                with open(p) as fh:
-                    for line in fh:
-                        s = line.strip()
-                        if s.startswith(("import jax", "from jax")):
-                            offenders.append(p)
-    assert not offenders, offenders
+    for p in files:
+        with open(p) as fh:
+            for n, line in enumerate(fh, 1):
+                if line.strip().startswith(banned):
+                    offenders.append(f"{p}:{n}")
+    assert len(files) > 30 and not offenders, offenders
 
 
 def test_slice_case_has_escalation_read():

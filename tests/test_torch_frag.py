@@ -17,7 +17,8 @@ from graphchainer_torch.align import anchors as TA
 from graphchainer_torch.ops import frag_align as TF
 
 from test_torch_common import (frag_batch, lane_major_inputs,
-                                     padded_batch, slice_case, t64)
+                                     padded_batch, port_graph,
+                               slice_case, t64)
 
 NAMES = ("best_score", "best_slot", "best_col", "best_in")
 
@@ -74,7 +75,7 @@ def test_host_tables_and_bands_match_jax():
     (model, jobs, frags) = frag_batch(32)[:3]
     jgx = JA.GraphTensors.build(g)
     for gx in (model.gx, TA.GraphTensors.from_numpy(
-            g, jgx.node_eq_cat, jgx.node_len_cat, jgx.out_ptr, jgx.out_idx,
+            port_graph(g), jgx.node_eq_cat, jgx.node_len_cat, jgx.out_ptr, jgx.out_idx,
             jgx.in_ptr, jgx.in_idx, jgx.seq_bytes, jgx.di_base)):
         for f in ("node_eq_rev", "node_eq_cat", "node_len_cat", "out_ptr",
                   "out_idx", "in_ptr", "in_idx", "node_len64", "seq_bytes",
@@ -105,7 +106,7 @@ def test_run_fragments_code0_rows_match_jax():
     fragment's end then match A, and on this batch that changes best_in."""
     model, bnc, bi, ss, req, rows, S, bl = padded_batch(16)
     assert TA.code0_padding(bnc, bi, req, rows, 4)
-    jgx = JA.GraphTensors.build(model.g)
+    jgx = JA.GraphTensors.build(slice_case()[0])
     ref = JA.run_fragments(jgx, bnc, bi, ss, req, rows, S, 4,
                            band_level=bl)
     got = TA.run_fragments(model.gx, bnc, bi, ss, req, rows, S, 4, bl,

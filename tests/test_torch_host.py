@@ -1,0 +1,423 @@
+"""The port's own host layer against the JAX package's modules it was
+copied from: constants, utils, io, native bindings, graph, index and the
+read simulator.  The same GFA text and the same numpy-seeded reads go
+through both packages, and every output must be exactly equal.  Also
+convert.py, which carries the reference's state across to the port's
+classes."""
+import dataclasses
+import gzip
+
+import numpy as np
+import pytest
+
+from graphchainer_tpu import constants as JK
+from graphchainer_tpu import native as JN
+from graphchainer_tpu.align import anchors as JA
+from graphchainer_tpu.graph import alignment_graph as JAG
+from graphchainer_tpu.graph import mpc as JMPC
+from graphchainer_tpu.graph import simulate as JSIM
+from graphchainer_tpu.index import minimizer as JMIN
+from graphchainer_tpu.io import fastq as JFQ
+from graphchainer_tpu.io import gfa as JGFA
+from graphchainer_tpu.models import chainer as JC
+from graphchainer_tpu.utils import bits as JB
+from graphchainer_tpu.utils import seq as JS
+from graphchainer_torch import constants as TK
+from graphchainer_torch import convert
+from graphchainer_torch import native as TN
+from graphchainer_torch.align import anchors as TA
+from graphchainer_torch.graph import alignment_graph as TAG
+from graphchainer_torch.graph import mpc as TMPC
+from graphchainer_torch.graph import simulate as TSIM
+from graphchainer_torch.index import minimizer as TMIN
+from graphchainer_torch.io import fastq as TFQ
+from graphchainer_torch.io import gfa as TGFA
+from graphchainer_torch.models import chainer as TC
+from graphchainer_torch.utils import bits as TB
+from graphchainer_torch.utils import seq as TS
+
+from test_mpc import random_dag_bigraph
+
+K, WIN = 11, 6
+
+
+def same(a, b, msg=""):
+    """Exact equality of two results of any nesting the host layer
+    returns: arrays (dtype included), dataclasses, tuples, lists,
+    scalars, None."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray), msg
+        assert a.dtype == b.dtype and a.shape == b.shape, \
+            (msg, a.dtype, b.dtype, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=msg)
+    elif dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, msg
+        for f in dataclasses.fields(a):
+            same(getattr(a, f.name), getattr(b, f.name), f"{msg}.{f.name}")
+    elif isinstance(a, (tuple, list)):
+        assert isinstance(b, (tuple, list)) and len(a) == len(b), msg
+        for i, (x, y) in enumerate(zip(a, b)):
+            same(x, y, f"{msg}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), msg
+        for k in a:
+            same(a[k], b[k], f"{msg}[{k!r}]")
+    else:
+        assert type(a) is type(b) and a == b, (msg, a, b)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One GFA text (a random DAG with a path line, an overlap link and
+    an IUPAC base), parsed and indexed by each package, and reads drawn
+    from its source-to-sink path."""
+    tmp = tmp_path_factory.mktemp("host")
+    rng = np.random.default_rng(2)
+    bg = random_dag_bigraph(rng, n_seg=24, p_edge=0.15, max_len=300)
+    gfa = str(tmp / "g.gfa")
+    JGFA.save_gfa(bg, gfa)
+    with open(gfa, "a") as f:
+        f.write("S\tx1\tACGTNACGRTAC\nS\tx2\tTACGGA\n"
+                "L\tx1\t+\tx2\t-\t3M\nP\tp1\tx1+,x2-\t*\n"
+                "W\ts\t0\tc\t0\t9\t>x1<x2\n")
+    w = {"gfa": gfa, "tmp": tmp}
+    for key, gfa_mod, ag, mpc_mod, mn in (
+            ("j", JGFA, JAG, JMPC, JMIN), ("t", TGFA, TAG, TMPC, TMIN)):
+        b = gfa_mod.load_gfa(gfa)
+        g = ag.build_alignment_graph(b)
+        w[key] = dict(bg=b, g=g, mpc=mpc_mod.build_mpc(g),
+                      index=mn.build_index(g, k=K, w=WIN))
+    path_seq, _ = JSIM.generate_path(w["j"]["g"], seed=5)
+    w["path_seq"] = path_seq
+    w["reads"] = JSIM.simulate_reads(path_seq, 4, 450, seed=8,
+                                     error_rate=0.10, len_std=40)
+    return w
+
+
+# ------------------------------------------------------------ constants
+@pytest.mark.parametrize("name", [n for n in dir(JK) if n.isupper()])
+def test_constants(name):
+    same(getattr(JK, name), getattr(TK, name), name)
+
+
+# ------------------------------------------------------------ utils
+SEQS = ["", "A", "ACGTNRYKMSWBDHV-acgtu", "GATTACA" * 9, "TTTTNNNNACGT" * 5]
+
+
+@pytest.mark.parametrize("fn", ["revcomp", "encode", "match_masks",
+                                "eq_bitplanes"])
+def test_utils_seq(fn):
+    for s in SEQS:
+        args = (s, 2) if fn == "eq_bitplanes" else (s,)
+        if fn == "encode":
+            s = s.replace("-", "")
+            args = (s,)
+        same(getattr(JS, fn)(*args), getattr(TS, fn)(*args), f"{fn}({s!r})")
+
+
+@pytest.mark.parametrize("fn", ["bitrev32", "reverse_eq_planes"])
+def test_utils_bits(fn):
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 1 << 32, size=(50, 4), dtype=np.uint64) \
+        .astype(np.uint32)
+    if fn == "bitrev32":
+        same(JB.bitrev32(x), TB.bitrev32(x))
+    else:
+        lens = rng.integers(1, 33, size=50).astype(np.int32)
+        same(JB.reverse_eq_planes(x, lens), TB.reverse_eq_planes(x, lens))
+
+
+# ------------------------------------------------------------ io
+@pytest.mark.parametrize("what", ["bigraph", "path_sequence", "save_gfa",
+                                  "parse_overlap", "steps"])
+def test_io_gfa(world, what):
+    jb, tb = world["j"]["bg"], world["t"]["bg"]
+    if what == "bigraph":
+        same(vars(jb), vars(tb))
+        assert len(jb.links) > 10 and jb.paths
+    elif what == "path_sequence":
+        for name in jb.paths:
+            same(JGFA.path_sequence(jb, name), TGFA.path_sequence(tb, name))
+    elif what == "save_gfa":
+        a, b = world["tmp"] / "a.gfa", world["tmp"] / "b.gfa"
+        JGFA.save_gfa(jb, str(a))
+        TGFA.save_gfa(tb, str(b))
+        assert a.read_text() == b.read_text() and a.read_text()
+    elif what == "parse_overlap":
+        for c in ("*", "0M", "12M"):
+            same(JGFA.parse_overlap(c), TGFA.parse_overlap(c))
+        with pytest.raises(ValueError):
+            TGFA.parse_overlap("3M2I4M")
+    else:
+        same(JGFA.parse_path_steps("a+,b-,c+"),
+             TGFA.parse_path_steps("a+,b-,c+"))
+        same(JGFA.parse_walk_steps(">a<b>c"), TGFA.parse_walk_steps(">a<b>c"))
+
+
+@pytest.mark.parametrize("kind", ["fasta", "fastq", "fastq.gz"])
+def test_io_fastq(world, kind):
+    p = world["tmp"] / f"r.{kind}"
+    if kind == "fasta":
+        text = "".join(f">{n} d\n{s[:60]}\n{s[60:]}\n"
+                       for n, s in world["reads"])
+    else:
+        text = "".join(f"@{n}\n{s}\n+\n{'I' * len(s)}\n"
+                       for n, s in world["reads"])
+    opener = gzip.open if kind.endswith(".gz") else open
+    with opener(p, "wt") as f:
+        f.write(text)
+    got = list(TFQ.stream_reads(str(p)))
+    same(list(JFQ.stream_reads(str(p))), got)
+    assert [r.seq for r in got] == [s for _, s in world["reads"]]
+
+
+# ------------------------------------------------------------ graph
+@pytest.mark.parametrize("what", [f.name for f in
+                                  dataclasses.fields(JAG.AlignmentGraph)]
+                         + ["approx_linear_pos", "chains", "stats",
+                            "queries"])
+def test_alignment_graph(world, what):
+    jg, tg = world["j"]["g"], world["t"]["g"]
+    assert type(tg) is TAG.AlignmentGraph
+    if what in ("approx_linear_pos", "chains", "stats"):
+        same(getattr(jg, what)(), getattr(tg, what)(), what)
+    elif what == "queries":
+        for v in range(0, jg.n_nodes, 7):
+            same(jg.node_seq(v), tg.node_seq(v))
+            same(jg.gfa_name(v), tg.gfa_name(v))
+            same(jg.is_reverse(v), tg.is_reverse(v))
+            same(jg.out_neighbors(v), tg.out_neighbors(v))
+            same(jg.in_neighbors(v), tg.in_neighbors(v))
+            same(jg.reverse_position(v, 0), tg.reverse_position(v, 0))
+            d, o = int(jg.orig_node[v]), int(jg.orig_offset[v])
+            same(jg.find_split(d, o), tg.find_split(d, o))
+        same(jg.path_seq(range(5)), tg.path_seq(range(5)))
+    else:
+        same(getattr(jg, what), getattr(tg, what), what)
+
+
+@pytest.mark.parametrize("what", [f.name for f in
+                                  dataclasses.fields(JMPC.MPCIndex)]
+                         + ["queries", "check", "saved"])
+def test_mpc(world, what):
+    jm, tm = world["j"]["mpc"], world["t"]["mpc"]
+    assert type(tm) is TMPC.MPCIndex
+    if what == "queries":
+        same(jm.max_width, tm.max_width)
+        same(jm.paths_of_component(0), tm.paths_of_component(0))
+        for v in range(0, world["j"]["g"].n_nodes, 5):
+            same(jm.backwards(v), tm.backwards(v))
+            same(jm.node_paths(v), tm.node_paths(v))
+    elif what == "check":
+        assert TMPC.check_min_path_cover(world["t"]["g"], tm)
+        assert JMPC.check_min_path_cover(world["j"]["g"], jm)
+    elif what == "saved":
+        # each package reads the file the other wrote
+        a, b = str(world["tmp"] / "ja.npz"), str(world["tmp"] / "tb.npz")
+        jm.save(a)
+        tm.save(b)
+        same(JMPC.MPCIndex.load(b), jm)
+        same(TMPC.MPCIndex.load(a), tm)
+    else:
+        same(getattr(jm, what), getattr(tm, what), what)
+
+
+# ------------------------------------------------------------ index
+@pytest.mark.parametrize("what", ["tables", "python_build", "minimizers",
+                                  "lookup", "lookup_batch", "get_seeds",
+                                  "cluster_seeds", "saved"])
+def test_minimizer(world, what, monkeypatch):
+    ji, ti = world["j"]["index"], world["t"]["index"]
+    reads = [s for _, s in world["reads"]]
+    assert type(ti) is TMIN.MinimizerIndex
+    if what == "tables":
+        same(ji, ti)
+        assert len(ti.codes) > 100
+    elif what == "python_build":
+        monkeypatch.setenv("GCTPU_PY_INDEX", "1")
+        same(TMIN.build_index(world["t"]["g"], k=K, w=WIN), ti)
+    elif what == "minimizers":
+        c = TMIN._encode(reads[0])
+        same(JMIN._encode(reads[0]), c)
+        same(JMIN.minimizers(c, K, WIN), TMIN.minimizers(c, K, WIN))
+        same(JMIN.kmer_codes(c, K), TMIN.kmer_codes(c, K))
+    elif what == "lookup":
+        for r in reads:
+            got = TMIN.get_seed_arrays(ti, r, 10.0)
+            same(JMIN.get_seed_arrays(ji, r, 10.0), got)
+            assert got is not None and len(got[0]) > 5
+    elif what == "lookup_batch":
+        same(JMIN.get_seed_arrays_batch(ji, reads, 5.0),
+             TMIN.get_seed_arrays_batch(ti, reads, 5.0))
+    elif what == "get_seeds":
+        same(JMIN.get_seeds(ji, reads[1]), TMIN.get_seeds(ti, reads[1]))
+    elif what == "cluster_seeds":
+        same(JMIN.cluster_seeds(world["j"]["g"], JMIN.get_seeds(ji, reads[2])),
+             TMIN.cluster_seeds(world["t"]["g"], TMIN.get_seeds(ti, reads[2])))
+    else:
+        a, b = str(world["tmp"] / "ji.npz"), str(world["tmp"] / "ti.npz")
+        ji.save(a)
+        ti.save(b)
+        same(JMIN.MinimizerIndex.load(b), ji)
+        same(TMIN.MinimizerIndex.load(a), ti)
+
+
+# ------------------------------------------------------------ simulate
+@pytest.mark.parametrize("what", ["generate_path", "simulate_reads",
+                                  "mutate_read", "mutate_read_badread",
+                                  "tangle_bigraph"])
+def test_simulate(world, what):
+    if what == "generate_path":
+        same(JSIM.generate_path(world["j"]["g"], seed=5),
+             TSIM.generate_path(world["t"]["g"], seed=5))
+    elif what == "simulate_reads":
+        got = TSIM.simulate_reads(world["path_seq"], 4, 450, seed=8,
+                                  error_rate=0.10, len_std=40)
+        same(world["reads"], got)
+        assert len({s for _, s in got}) == 4
+    elif what == "tangle_bigraph":
+        a = JSIM.tangle_bigraph(np.random.default_rng(4), n_knots=3)
+        b = TSIM.tangle_bigraph(np.random.default_rng(4), n_knots=3)
+        same(vars(a), vars(b))
+    else:
+        seq = world["path_seq"][:300]
+        same(getattr(JSIM, what)(np.random.default_rng(9), seq),
+             getattr(TSIM, what)(np.random.default_rng(9), seq))
+
+
+# ------------------------------------------------------------ native
+def test_native_libraries_are_separate():
+    """The port builds the shared C++ source into its own _build/ and
+    never loads the JAX package's library."""
+    TN.get_lib()
+    JN.get_lib()
+    assert "graphchainer_torch/_build/" in TN.library_path()
+    assert TN.get_lib()._name == TN.library_path()
+    assert JN.get_lib()._name != TN.get_lib()._name
+    assert not hasattr(TN, "_SO")
+
+
+@pytest.fixture(scope="module")
+def native_calls(world):
+    """One align_batch of the port on two reads, with the arguments and
+    results of its native stage calls recorded."""
+    t = world["t"]
+    model = TC.ChainerModel(t["g"], t["mpc"], t["index"],
+                            TC.ChainerConfig(escalate_threshold=None),
+                            device="cpu")
+    calls = {}
+    names = ("seed_window_batch", "join_anchors", "stitch_batch",
+             "corridor_polish_batch")
+    saved = {n: getattr(TN, n) for n in names}
+
+    def recorder(n):
+        def call(*args, **kw):
+            res = saved[n](*args, **kw)
+            calls.setdefault(n, (args, kw, res))
+            return res
+        return call
+    mp = pytest.MonkeyPatch()
+    for n in names:
+        mp.setattr(TN, n, recorder(n))
+    try:
+        alns = model.align_batch(world["reads"][:2])
+    finally:
+        mp.undo()
+    assert all(not a.failed for a in alns)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["seed_window_batch", "join_anchors",
+                                  "stitch_batch", "corridor_polish_batch"])
+def test_native_stage_calls(world, native_calls, name):
+    """Each recorded call, replayed through the JAX package's loader with
+    the JAX package's own graph tables and index, gives the same result."""
+    args, kw, res = native_calls[name]
+    jgx = JA.GraphTensors.build(world["j"]["g"])
+    swap = {id(world["t"]["index"]): world["j"]["index"]}
+    args = [jgx if isinstance(a, TA.GraphTensors) else swap.get(id(a), a)
+            for a in args]
+    ref = getattr(JN, name)(*args, **kw)
+    if name == "seed_window_batch":
+        assert type(res[0]) is TN.JobCols and len(res[0]) > 10
+        same(vars(ref[0]), vars(res[0]))
+        same(ref[1:], res[1:])
+    else:
+        same(ref, res, name)
+
+
+@pytest.mark.parametrize("name", ["topo_order", "scc_order", "approx_pos",
+                                  "connected_components", "mpc_build",
+                                  "band_build", "find_chains",
+                                  "minimizer_build"])
+def test_native_graph_calls(world, name):
+    g = world["t"]["g"]
+    n = g.n_nodes
+    src = np.repeat(np.arange(n, dtype=np.int64), np.diff(g.out_ptr))
+    dst = g.out_idx.astype(np.int64)
+    if name in ("topo_order", "scc_order", "connected_components"):
+        args = (n, src, dst)
+    elif name == "approx_pos":
+        args = (n, src, dst, g.node_len)
+    elif name == "mpc_build":
+        args = (n, src, dst, g.comp, g.ncomp)
+    elif name == "band_build":
+        seeds = np.arange(0, n, 9, dtype=np.int64)
+        args = (n, g.out_ptr, g.out_idx, g.node_len, seeds,
+                np.ones_like(seeds), 16, 200, 4, False)
+    elif name == "find_chains":
+        args = (n, g.out_ptr, g.out_idx, g.in_ptr, g.in_idx, g.node_len,
+                g.di_ptr, g.di_splits)
+    else:
+        seq = np.frombuffer("".join(g.di_seqs).encode(), dtype=np.uint8)
+        off = np.zeros(g.n_digraph + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in g.di_seqs], out=off[1:])
+        args = (seq, off, K, WIN, 2)
+    same(getattr(JN, name)(*args), getattr(TN, name)(*args), name)
+
+
+def test_native_topo_order_refuses_a_cycle():
+    with pytest.raises(ValueError):
+        TN.topo_order(2, np.array([0, 1]), np.array([1, 0]))
+
+
+# ------------------------------------------------------------ convert
+@pytest.mark.parametrize("what", ["graph", "mpc", "index", "config",
+                                  "config_inherits", "copies",
+                                  "missing_field"])
+def test_convert(world, what):
+    j, t = world["j"], world["t"]
+    if what == "graph":
+        jg = j["g"]
+        jg.approx_linear_pos()      # a cached attribute must not cross
+        got = convert.from_reference_graph(vars(jg))
+        assert type(got) is TAG.AlignmentGraph
+        assert not hasattr(got, "_approx_pos")
+        same(got, t["g"])
+    elif what == "mpc":
+        got = convert.from_reference_mpc(vars(j["mpc"]))
+        assert type(got) is TMPC.MPCIndex
+        same(got, t["mpc"])
+    elif what == "index":
+        got = convert.from_reference_index(vars(j["index"]))
+        assert type(got) is TMIN.MinimizerIndex
+        same(got, t["index"])
+    elif what == "config":
+        jcfg = JC.ChainerConfig(rescue_threshold=0.0,
+                                escalate_threshold=0.35,
+                                auto_compare_dense=False, band_slots=48)
+        got = convert.from_reference_config(dataclasses.asdict(jcfg))
+        assert got == TC.ChainerConfig(band_slots=48)
+    elif what == "config_inherits":
+        got = convert.from_reference_config(
+            dataclasses.asdict(JC.ChainerConfig()))
+        assert got.escalate_threshold == got.rescue_threshold == 0.35
+    elif what == "copies":
+        got = convert.from_reference_graph(vars(j["g"]))
+        assert not np.shares_memory(got.node_len, j["g"].node_len)
+        assert got.names is not j["g"].names
+    else:
+        fields = dict(vars(j["mpc"]))
+        del fields["back_k"]
+        with pytest.raises(KeyError, match="back_k"):
+            convert.from_reference_mpc(fields)

@@ -35,8 +35,46 @@ def test_cpu_tensors_run_plain_versions():
     ref = linear_align._polish_walk_t(*ref, planes_t, path_t, rl, pl, 4,
                                       1024, 512)
     assert torch.equal(walk, ref)
-    assert _cuda.launches() == {"frag_core": 0, "polish_core": 0,
-                                "polish_walk": 0}
+    assert set(_cuda.launches().values()) == {0}
+    assert set(_cuda.launches()) == {
+        "frag_core", "polish_core", "polish_walk", "polish_core_serial",
+        "polish_walk_serial"}
+
+
+@pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
+def test_polish_entry_is_chosen_by_band_width(bw):
+    """The warp-per-read entries take the band ramp's widths, the
+    thread-per-read entries the rest; an entry can be forced only where
+    it is built."""
+    want = "warp" if bw in (8, 16, 32) else "serial"
+    assert polish_kernel.entry_for(bw) == want
+    assert polish_kernel._entry(bw, None) == want
+    assert polish_kernel._entry(bw, "serial") == "serial"
+    if want == "serial":
+        with pytest.raises(ValueError, match="no 'warp' entry"):
+            polish_kernel._entry(bw, "warp")
+    with pytest.raises(ValueError, match="no 'fast' entry"):
+        polish_kernel._entry(bw, "fast")
+
+
+def test_polish_dump_layouts():
+    """A dump reaches its entry in the memory order that entry reads: a
+    (P, bw, R) view of read-major storage goes to the warp entry without
+    a copy, and is copied column-major for the serial entry."""
+    R, P, bw = 3, 5, 8
+    store = torch.arange(R * P * bw, dtype=torch.int32).reshape(R, P, bw)
+    view = store.permute(1, 2, 0)
+    assert tuple(view.shape) == (P, bw, R)
+    warp = polish_kernel._stored(view, True)
+    assert warp.data_ptr() == store.data_ptr() and warp.is_contiguous()
+    serial = polish_kernel._stored(view, False)
+    assert serial.is_contiguous() and torch.equal(serial, view)
+    assert serial.data_ptr() != store.data_ptr()
+    back = polish_kernel._stored(serial, True)
+    assert tuple(back.shape) == (R, P, bw) and torch.equal(back, store)
+    base = torch.arange(R * P, dtype=torch.int32).reshape(R, P)
+    assert polish_kernel._stored(base.permute(1, 0), True).data_ptr() \
+        == base.data_ptr()
 
 
 def test_kernel_calls_refuse_cpu_tensors():
@@ -90,13 +128,15 @@ def test_frag_kernel_matches_plain(cuda_device, B, max_in):
 def test_polish_kernel_matches_plain(cuda_device, bw):
     planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
                                 for a in mixed_batch())
-    got = polish_kernel.polish_core(planes_t, path_t, rl, pl, bw)
     ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
-    torch.cuda.synchronize()
-    assert torch.equal(u32(got[0]).cpu(), ref[0].cpu())
-    assert torch.equal(u32(got[1]).cpu(), ref[1].cpu())
-    assert torch.equal(got[2].long().cpu(), ref[2].cpu())
-    assert torch.equal(got[3].long().cpu(), ref[3].cpu())
+    i32 = (to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int())
+    for entry in ((None, "serial") if bw >= 8 else (None,)):
+        got = polish_kernel.polish_core_cuda(*i32, bw, entry=entry)
+        torch.cuda.synchronize()
+        assert torch.equal(u32(got[0]).cpu(), ref[0].cpu()), entry
+        assert torch.equal(u32(got[1]).cpu(), ref[1].cpu()), entry
+        assert torch.equal(got[2].long().cpu(), ref[2].cpu()), entry
+        assert torch.equal(got[3].long().cpu(), ref[3].cpu()), entry
 
 
 @pytest.mark.gpu
@@ -105,11 +145,17 @@ def test_polish_walk_matches_plain(cuda_device, bw):
     planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
                                 for a in mixed_batch())
     dump = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
+    i32 = (tuple(to_i32_bits(d) for d in dump)
+           + (to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int()))
     for max_steps, cap in ((1024, 512), (1024, 256), (1024, 0)):
-        got = polish_kernel.polish_walk(*dump, planes_t, path_t, rl, pl, bw,
-                                        max_steps, cap)
         ref = linear_align._polish_walk_t(*dump, planes_t, path_t, rl, pl,
                                           bw, max_steps, cap)
+        got = polish_kernel.polish_walk(*dump, planes_t, path_t, rl, pl, bw,
+                                        max_steps, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.cpu())
+        got = polish_kernel.polish_walk_cuda(*i32, bw, max_steps, cap,
+                                             entry="serial")
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref.cpu())
 
@@ -117,12 +163,13 @@ def test_polish_walk_matches_plain(cuda_device, bw):
 @pytest.mark.gpu
 def test_align_batch_cuda_matches_cpu(cuda_device):
     from graphchainer_torch.models.chainer import ChainerModel
-    from test_torch_common import slice_case
-    g, mpc, index, _, reads = slice_case()
+    from test_torch_common import slice_case_port
+    g, mpc, index, _, reads = slice_case_port()
     _cuda.reset_launches()
     a = ChainerModel(g, mpc, index, device=cuda_device).align_batch(reads)
     n = _cuda.launches()
-    assert min(n.values()) > 0, n
+    assert min(n[k] for k in ("frag_core", "polish_core",
+                              "polish_walk")) > 0, n
     b = ChainerModel(g, mpc, index, device="cpu").align_batch(reads)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(np.asarray(x.positions),
@@ -163,8 +210,8 @@ def test_split_lookup_is_published_whole():
     import sys
     import threading
     from graphchainer_torch.align.anchors import GraphTensors
-    from test_torch_common import slice_case
-    g = slice_case()[0]
+    from test_torch_common import slice_case_port
+    g = slice_case_port()[0]
     want = GraphTensors.build(g).split_lookup()
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

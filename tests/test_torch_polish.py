@@ -14,7 +14,9 @@ from graphchainer_tpu.ops import linear_align as JL
 from graphchainer_torch.align import polish as TP
 from graphchainer_torch.ops import linear_align as TL
 
-from test_torch_common import mixed_batch, t64
+from graphchainer_torch.workload import polish_hard_pairs
+
+from test_torch_common import mixed_batch, pack_polish_pairs, t64
 
 
 @pytest.mark.parametrize("bw", [4, 8])
@@ -42,6 +44,55 @@ def test_polish_core_score_backtrace_match_jax(bw):
                                       gb.touched.numpy())
     # the short cap makes some walks overflow (n_ops == -1)
     assert (gb.n_ops.numpy() == -1).any() and (gb.n_ops.numpy() > 0).any()
+
+
+@pytest.mark.parametrize("bw", [8, 16])
+def test_polish_hard_cases_match_jax(bw):
+    """The inputs the warp-per-read kernels must survive, through the
+    plain versions and the JAX functions: a batch that mixes bands moving
+    several words a column (the kernels' serial branch) with ordinary
+    reads, a path far below the padded column count, an empty read and an
+    empty path, walks along a band edge, and walks that overflow a short
+    ops_cap.  The smoke run holds the kernels to the plain versions on
+    the same generator's pairs at full size."""
+    trip = polish_hard_pairs(5, 3, 700, indel=200)
+    labels = [lab for lab, _, _ in trip]
+    A = pack_polish_pairs([(r, p) for _, r, p in trip], 1024, 896)
+    J = [jnp.asarray(a) for a in A]
+    T = [t64(a) for a in A]
+    ref = JL._polish_core_t(*J, bw)
+    got = TL._polish_core_t(*T, bw)
+    for name, r, g in zip(("vp", "vn", "sb", "base"), ref, got):
+        np.testing.assert_array_equal(np.asarray(r).astype(np.int64),
+                                      g.numpy(), err_msg=name)
+    # the band of the multi_shift read moves two words in some column,
+    # that of the plain reads never more than one
+    step = np.diff(got[3].numpy(), axis=0).max(axis=0)
+    assert step[labels.index("multi_shift")] >= 2
+    assert all(step[i] <= 1 for i, lab in enumerate(labels)
+               if lab.startswith("plain"))
+    np.testing.assert_array_equal(
+        np.asarray(JL._score_from_dump_t(*ref, J[2], J[3], bw)),
+        TL._score_from_dump_t(*got, T[2], T[3], bw).numpy())
+    for cap in (0, 672):
+        rb = JL._backtrace_t(*ref, *J, bw, 1920, cap)
+        gb = TL._backtrace_t(*got, *T, bw, 1920, cap)
+        np.testing.assert_array_equal(np.asarray(rb.ops_rev),
+                                      gb.ops_rev.numpy())
+        np.testing.assert_array_equal(np.asarray(rb.n_ops), gb.n_ops.numpy())
+        np.testing.assert_array_equal(np.asarray(rb.touched),
+                                      gb.touched.numpy())
+        n_ops = dict(zip(labels, gb.n_ops.tolist()))
+        touched = dict(zip(labels, gb.touched.tolist()))
+        assert n_ops["empty_read"] == n_ops["empty_path"] == -1
+        assert touched["multi_shift"] and not touched["plain0"]
+        assert touched["deletion"] == (bw == 8)
+        if cap:     # the longer walks overflow, the shorter complete
+            assert n_ops["plain2"] > 0 and n_ops["insertion"] == -1
+        else:
+            assert n_ops["insertion"] == 900 and n_ops["deletion"] == 700
+    packed = TL._polish_walk_t(*got, *T, bw, 1920, 672)
+    np.testing.assert_array_equal(packed[:, 1].numpy(), gb.n_ops.numpy())
 
 
 def polish_case():

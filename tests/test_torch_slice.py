@@ -4,6 +4,7 @@ version) against graphchainer_tpu's ChainerModel under the slice
 configuration — no GA rescue, band escalation at a normalised edit
 distance of 0.35.  Per read, positions, ops, score, n_anchors and
 n_chained are equal and the GAF lines are byte-equal."""
+import dataclasses
 import functools
 import os
 import subprocess
@@ -15,13 +16,14 @@ import pytest
 from graphchainer_tpu.io import gaf as JG
 from graphchainer_tpu.io.gfa import save_gfa
 from graphchainer_tpu.models import chainer as JC
-from graphchainer_tpu.utils import timers
-from graphchainer_torch import cli
+from graphchainer_torch import cli, convert
 from graphchainer_torch.io import gaf as TG
 from graphchainer_torch.models import chainer as TC
+from graphchainer_torch.utils import timers
 
 from test_mpc import random_dag_bigraph
-from test_torch_common import REPO, slice_case
+from test_torch_common import (REPO, port_graph, port_index, port_mpc,
+                               slice_case, slice_case_port)
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,7 +34,10 @@ def both_runs():
                             auto_compare_dense=False)
     ja = JC.ChainerModel(g, mpc, index, jcfg).align_batch(reads)
     timers.reset()
-    ta = TC.ChainerModel(g, mpc, index, TC.ChainerConfig(),
+    tg, tmpc, tindex = slice_case_port()[:3]
+    tcfg = convert.from_reference_config(dataclasses.asdict(jcfg))
+    assert tcfg == TC.ChainerConfig()
+    ta = TC.ChainerModel(tg, tmpc, tindex, tcfg,
                          device="cpu").align_batch(reads)
     return ja, ta, timers.counters().get("escalated_reads", 0)
 
@@ -55,11 +60,11 @@ def test_align_batch_matches_jax():
 
 @pytest.mark.parametrize("merge_mm", [False, True])
 def test_gaf_lines_match_jax(merge_mm):
-    g = slice_case()[0]
+    g, tg = slice_case()[0], slice_case_port()[0]
     ja, ta, _ = both_runs()
     for a, b in zip(ja, ta):
         assert JG.gaf_line(g, a, cigar_merge_mm=merge_mm) == \
-            TG.gaf_line(g, b, cigar_merge_mm=merge_mm)
+            TG.gaf_line(tg, b, cigar_merge_mm=merge_mm)
 
 
 def test_noisy_read_escalates():
@@ -71,7 +76,7 @@ def test_noisy_read_escalates():
 
 
 def test_ga_rescue_is_refused():
-    g, mpc, index, _, reads = slice_case()
+    g, mpc, index, _, reads = slice_case_port()
     for cfg in (TC.ChainerConfig(rescue_threshold=0.35),
                 TC.ChainerConfig(compare_with_baseline=True)):
         m = TC.ChainerModel(g, mpc, index, cfg, device="cpu")
@@ -84,7 +89,8 @@ def test_ga_rescue_is_refused():
     from graphchainer_tpu.graph.mpc import build_mpc
     from graphchainer_tpu.index.minimizer import build_index
     gd = build_alignment_graph(dense)
-    m = TC.ChainerModel(gd, build_mpc(gd), build_index(gd, k=5, w=2),
+    m = TC.ChainerModel(port_graph(gd), port_mpc(build_mpc(gd)),
+                        port_index(build_index(gd, k=5, w=2)),
                         TC.ChainerConfig(auto_compare_dense=True),
                         device="cpu")
     assert m._dense_graph
