@@ -33,12 +33,15 @@
 // warp, inside the same kernel, into the same layout.
 //   What bounds it on the H100: the P + RW + BW steps of the wavefront.
 // A step is ~80 instructions issued by one warp alone on its scheduler,
-// each waiting on the one before; the carry chain itself (the shuffle and
-// ~10 dependent integer ops) is a quarter of a step.  The time moves
-// neither with bw nor with the number of reads up to one warp per SM, so
-// the dump's stores (12 bytes per word per column, one sector per lane
-// and store) do not bind, and the dump's bytes at the memory rate lie 17
-// to 59 times below (PERF.md).
+// with little but its own instructions to hide their latencies behind; the
+// carry chain itself (the shuffle and ~10 dependent integer ops) is a
+// fraction of a step.  So the lane's bookkeeping for the coming step (is
+// its word in the band, the band's top, the match bits) is worked out
+// one step ahead, as straight-line code beside the carry chain.  The time
+// does not move with the number of reads up to one warp per SM, nor from
+// bw 8 to 16; at bw 32 the dump's stores (12 bytes per word per column,
+// one sector per lane and store) take over.  The dump's bytes at the
+// memory rate lie an order of magnitude and more below (PERF.md).
 //
 // polish_core_serial_launch (any bw; the wrapper takes it for bw 1, 2, 4,
 // 64, and the smoke run times it as the yardstick): one thread per read,
@@ -193,7 +196,7 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
                         uint32_t* __restrict__ dvn,            // (R, P, BW)
                         int* __restrict__ dsb,                 // (R, P, BW)
                         int* __restrict__ dbase) {             // (R, P)
-  static_assert(BW >= 2 && BW <= 32 && RING >= RING_STEPS + BW, "band");
+  static_assert(BW >= 2 && BW <= 32 && RING > RING_STEPS + BW, "band");
   __shared__ uint8_t ring[RING];
   const int r = blockIdx.x;
   const int lane = threadIdx.x;
@@ -229,55 +232,72 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
   int fill_hi = 0;                // first path column not yet in the ring
   const int src = (lane - 1) & (BW - 1);
 
+  // What the lane does at the coming step is worked out one step ahead
+  // (is its word in the band at its column, the band's top there, the
+  // match bits), beside the carry chain of the step before and not in
+  // front of it: both are straight-line code in one block, so their
+  // instructions fill each other's latencies.
+  bool act = false;               // the word takes column p at this step
+  int p = 0, nb = 0;
+  uint32_t eq = 0;
+  auto prepare = [&](int s) {
+    p = s - a;
+    const bool inside = p >= 0 && p < P;
+    nb = band.base(min(max(p, 0), P - 1));
+    const bool left = inside && a < nb;
+    act = inside && !left && a < nb + BW;
+    const uint32_t pmm = ring[p & (RING - 1)];
+    eq = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) eq |= ((pmm >> k) & 1u) ? pw[k] : 0u;
+    if (left) {                   // left the band: take the next word,
+      a += BW;                    // which enters BW steps from now
+      fresh = true;
+      load_planes(a, pw);
+    }
+  };
+
   for (int S = base0; S <= s_end; S += RING_STEPS) {
-    // Column p is first read at step p + base(p), so the steps up to
-    // S + RING_STEPS - 1 read no column at or past S + RING_STEPS -
-    // base(fill_hi); a column is last read BW - 1 steps after its first,
-    // so the slot it overwrites (RING columns back) is done.
+    // Column p is first used at step p + base(p) and read one step
+    // earlier, so the steps up to S + RING_STEPS - 1 read no column past
+    // S + RING_STEPS - base(fill_hi); a column is last used BW - 1 steps
+    // after its first, so the slot it overwrites (RING columns back) is
+    // done.
     __syncwarp();
-    const int hi = min(P, S + RING_STEPS - band.base(min(fill_hi, P - 1)));
-    for (int p = fill_hi + lane; p < hi; p += 32)
-      ring[p & (RING - 1)] = (uint8_t)path[(size_t)p * R + r];
+    const int hi = min(P, S + RING_STEPS + 1
+                              - band.base(min(fill_hi, P - 1)));
+    for (int c = fill_hi + lane; c < hi; c += 32)
+      ring[c & (RING - 1)] = (uint8_t)path[(size_t)c * R + r];
     fill_hi = max(fill_hi, hi);
     __syncwarp();
+    if (S == base0) prepare(S);
 
     const int Se = min(S + RING_STEPS - 1, s_end);
     for (int s = S; s <= Se; ++s) {
       // the neighbour's carry (-1, 0, 1) and its sb before its last
       // column, in one shuffle
       const int nbr = __shfl_sync(FULL, sb_prev * 4 + (hout + 1), src);
-      const int nbr_hout = (nbr & 3) - 1;
-      const int nbr_sb_prev = nbr >> 2;
-      const int p = s - a;
-      if (p < 0 || p >= P) continue;
-      const int nb = band.base(p);
-      if (a < nb) {                 // left the band: take the next word
-        a += BW;
-        fresh = true;
-        load_planes(a, pw);
-        continue;
-      }
-      if (a >= nb + BW) continue;   // not in the band yet
-      if (fresh) {
-        // column 0 starts from the boundary column; a word that enters
-        // below the old bottom continues its all-insertion run
-        vp = ONES; vn = 0;
-        sb = p == 0 ? (a + 1) * W : nbr_sb_prev + W;
+      // column 0 starts from the boundary column; a word that enters
+      // below the old bottom continues its all-insertion run
+      const bool start = act && fresh;
+      uint32_t v_p = start ? ONES : vp;
+      uint32_t v_n = start ? 0u : vn;
+      int v_s = start ? (p == 0 ? (a + 1) * W : (nbr >> 2) + W) : sb;
+      const int before = v_s;
+      const int hin = a == nb ? 1 : (nbr & 3) - 1;
+      const int h = advance(v_p, v_n, v_s, eq, hin);
+      if (act) {
+        vp = v_p; vn = v_n; sb = v_s;
+        sb_prev = before;
+        hout = h;
         fresh = false;
+        const size_t o = dump_at<BW, true>(p, a - nb, r, R, P);
+        dvp[o] = v_p;
+        dvn[o] = v_n;
+        dsb[o] = v_s;
+        if (a == nb) dbase[base_at<true>(p, r, R, P)] = nb;
       }
-      const uint32_t pmm = ring[p & (RING - 1)];
-      uint32_t eq = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if ((pmm >> k) & 1u) eq |= pw[k];
-      const int hin = a == nb ? 1 : nbr_hout;
-      sb_prev = sb;
-      hout = advance(vp, vn, sb, eq, hin);
-      const size_t o = dump_at<BW, true>(p, a - nb, r, R, P);
-      dvp[o] = vp;
-      dvn[o] = vn;
-      dsb[o] = sb;
-      if (a == nb) dbase[base_at<true>(p, r, R, P)] = nb;
+      prepare(s + 1);
     }
   }
 }
