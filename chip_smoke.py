@@ -469,13 +469,15 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        host = pool.submit(native.get_lib)      # g++ beside the nvcc runs
+        host = pool.submit(native.get_lib)      # g++ beside the nvcc runs,
+                                                # each under its own lock
         _cuda.lib()
         cuda_s = time.perf_counter() - t0
         host.result()
     log(f"kernels built in {cuda_s:.2f} s (nvcc {_cuda.build_seconds:.2f} "
         f"s): {_cuda.library_path()}; host runtime ready after "
-        f"{time.perf_counter() - t0:.2f} s: {native.library_path()}")
+        f"{time.perf_counter() - t0:.2f} s (g++ {native.build_seconds:.2f} "
+        f"s, started with nvcc): {native.library_path()}")
 
     # ---- 3's workload first: phase 2 takes its shapes from real batches
     quick = opts.quick
@@ -494,10 +496,12 @@ def main() -> int:
     frag_err = max(frag_err, e2)
     n_timed = 32 if quick else 128
     pairs_all = stitched_pairs(model, reads[:n_timed])
-    pairs = pairs_all[:32]
-    # the plain versions are timed here, once, on 32 reads
-    pol = {bw: check_polish(pairs, bw, dev, "stitched paths")
+    # the main path's batch, whole: the warp entries' grid and the
+    # strides of planes and path are its read count.  The plain versions
+    # are timed here, in their one run on it
+    pol = {bw: check_polish(pairs_all, bw, dev, "stitched paths")
            for bw in (8, 16, 32)}
+    pairs = pairs_all[:32]
     checks = list(pol.values())
     # every path cut to 48 bp: each band moves several words a column
     checks.append(check_polish([(r, p[:48]) for r, p in pairs], 8, dev,
@@ -597,7 +601,7 @@ def main() -> int:
     # bit-parallel DP over a graph band, its linear form with a dump, a
     # data-dependent backtrace), so library_ms is null throughout.  The
     # polish rows are for bw=8, the band the main path starts every batch
-    # with; plain_ms is the plain version's one run on 32 reads.
+    # with; plain_ms is the plain version's one run on the same batch.
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **more):
         return dict({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],

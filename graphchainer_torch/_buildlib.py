@@ -2,8 +2,9 @@
 
 Both the CUDA kernels (ops/_cuda.py) and the C++ host runtime (native.py)
 are compiled at first use into a file named by a hash of their sources and
-flags, behind a file lock, so concurrent processes build each once and a
-changed source never loads a stale library.
+flags, behind a file lock of its own (<library>.lock), so concurrent
+processes build each once, two different libraries build side by side,
+and a changed source never loads a stale library.
 """
 from __future__ import annotations
 
@@ -26,12 +27,12 @@ def hashed_path(stem: str, sources, flags) -> str:
 
 
 def build_once(so: str, make) -> float:
-    """Run make(tmp_path) under the build lock unless `so` exists, then
+    """Run make(tmp_path) under `so`'s own lock unless `so` exists, then
     move the result into place.  Returns the build's wall seconds (0.0
     when another process had built it)."""
     import fcntl
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lk:
+    with open(so + ".lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if os.path.exists(so):
             return 0.0

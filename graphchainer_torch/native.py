@@ -27,6 +27,8 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 _lock = threading.Lock()
 _lib = None
+build_seconds = None        # wall time of the g++ run that produced the
+                            # loaded library (0.0 when it was already built)
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 
@@ -57,15 +59,15 @@ def _make(out: str) -> None:
 
 
 def get_lib() -> ctypes.CDLL:
-    global _lib
+    global _lib, build_seconds
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is not None:
             return _lib
         so = library_path()
-        if not os.path.exists(so):
-            _buildlib.build_once(so, _make)
+        build_seconds = (_buildlib.build_once(so, _make)
+                         if not os.path.exists(so) else 0.0)
         lib = ctypes.CDLL(so)
         lib.topo_order.restype = ctypes.c_int
         lib.scc_order.restype = ctypes.c_int64
