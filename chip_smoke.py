@@ -9,9 +9,14 @@ Phases (any failure raises and exits non-zero before the result line):
      them, the C++ host runtime (g++);
   2. each kernel against its plain torch version on the card, exact
      equality, at the main path's shapes from real batches of the bench
-     workload: frag_core at B=32 / S=2 / max_in=4 on a 128-read batch and
-     at the escalation shape B=96 / max_in=12 on 16 reads; both entries
-     (warp per read, thread per read) of polish_core and of polish_walk
+     workload: frag_core on a 128-read batch as run_fragments launches it
+     (the band at its own width B_eff, host-typed inputs), the same batch
+     padded to B=32, the escalation shape B=96 / max_in=12 on 16 reads and
+     the hard batches of workload.frag_hard_batch (B=8 / S=3 and B=128 /
+     max_in=12); frag_core's two designs timed in turns at the main shape
+     and at B=96, and nvcc's report of its registers and spills (any
+     stack frame or spill fails); both entries (warp per read, thread
+     per read) of polish_core and of polish_walk
      (score + backtrace over the fill's dump) at bw 8, 16 and 32 on 32
      reads against their stitched paths, on a batch whose 48 bp paths
      force band shifts of several words per column, and on a batch that
@@ -64,15 +69,22 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+HOST_US_PER_CALL = 300        # what the host may take to enqueue one fn()
+
+
 def cuda_ms(fn, reps: int = 1, warm: bool = True) -> float:
     """Mean milliseconds of fn() on the card over `reps` runs, after one
-    warm-up run (warm=False: the caller just ran fn)."""
+    warm-up run (warm=False: the caller just ran fn).  A sleep queued on
+    the card first keeps it busy while the host enqueues the runs, so a
+    kernel shorter than its wrapper's host time is timed as the card runs
+    it, back to back, and not at the rate the host enqueues it."""
     import torch
     if warm:
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * HOST_US_PER_CALL * 2000))   # ~2 GHz
     t0.record()
     for _ in range(reps):
         fn()
@@ -88,17 +100,15 @@ def max_abs_diff(a, b) -> int:
 
 
 # ---------------------------------------------------------------- phase 2
-def frag_inputs(model, reads, B, max_in, slack, dev):
-    """Lane-major fragment-core inputs of one real batch, bands padded to
-    exactly B slots, as align_fragments_tl builds them."""
+def frag_inputs(model, reads, B, max_in, slack, dev, pad_to=None):
+    """The arguments of frag_kernel.frag_core for one real batch, exactly
+    as run_fragments hands them over (anchors.fragment_inputs): the band
+    at the batch's own width B_eff, or padded with empty slots to
+    `pad_to`.  Returns (args, keyword args, B_eff)."""
     import numpy as np
-    import torch
     from graphchainer_torch.align.anchors import (assemble_batch_cols,
-                                                  code0_padding,
-                                                  level_bucket,
-                                                  pad_rows_code0)
+                                                  fragment_inputs)
     from graphchainer_torch.models.chainer import match_masks
-    from graphchainer_torch.ops.frag_align import lane_major
     jobs, _, _ = model._fragment_jobs_cols(reads)
     mm = match_masks("".join(s for _, s in reads))
     base = np.zeros(len(reads) + 1, dtype=np.int64)
@@ -106,55 +116,167 @@ def frag_inputs(model, reads, B, max_in, slack, dev):
     (_, bnc, bi, ss, req, rows, S, bl) = assemble_batch_cols(
         model.gx, jobs, mm, base, B=B, max_in=max_in, slack=slack)
     b_eff = bnc.shape[1]
-    if code0_padding(bnc, bi, req, rows, max_in):
-        req = pad_rows_code0(req, rows)
-    pad = B - b_eff
-    bnc = np.pad(bnc, ((0, 0), (0, pad)), constant_values=-1)
-    bi = np.pad(bi, ((0, 0), (0, pad), (0, 0)), constant_values=-1)
-    bl = np.pad(bl, ((0, 0), (0, pad)), constant_values=-1)
-    eq, ln = model.gx.device_tables(dev)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(  # noqa: E731
-        dev, torch.int64)
-    args = lane_major(eq, ln, t(bnc), t(bi), t(ss),
-                      t(req.astype(np.int64)), t(rows), t(bl))
-    n_levels = level_bucket(bl, B)
-    kw = dict(S=S, max_in=max_in, n_levels=n_levels)
+    if pad_to:
+        pad = pad_to - b_eff
+        bnc = np.pad(bnc, ((0, 0), (0, pad)), constant_values=-1)
+        bi = np.pad(bi, ((0, 0), (0, pad), (0, 0)), constant_values=-1)
+        bl = np.pad(bl, ((0, 0), (0, pad)), constant_values=-1)
+    args, kw = fragment_inputs(model.gx, bnc, bi, ss, req, rows, S, max_in,
+                               bl, dev)
     return args, kw, b_eff
 
 
-def check_frag(model, reads, B, max_in, slack, dev):
+def frag_hard_inputs(dev, seed, **shape):
+    """workload.frag_hard_batch on the card, in the kernel's types."""
+    import numpy as np
     import torch
-    from graphchainer_torch.ops import frag_align, frag_kernel
-    from graphchainer_torch.ops.myers import to_i32_bits
-    args, kw, b_eff = frag_inputs(model, reads, B, max_in, slack, dev)
-    slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t, fl, sb = args
-    k_args = (to_i32_bits(slot_eq_t), slot_len_t.to(torch.int32),
-              band_in_t.to(torch.int32), band_level_t.to(torch.int32),
-              to_i32_bits(req_t), fl[0].to(torch.int32),
-              sb[0].to(torch.int32))
-    got = frag_kernel.frag_core_cuda(*k_args, **kw)
+    from graphchainer_torch.align.anchors import level_bucket
+    from graphchainer_torch.workload import frag_hard_batch
+    eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(seed, **shape)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(bl), t(ss),
+            t(req.view(np.int32)), t(rows))
+    return args, dict(S=req.shape[1], max_in=bi.shape[2],
+                      n_levels=level_bucket(bl, bn.shape[1]))
+
+
+def frag_plain(args, kw):
+    """The plain version on the same tensors (lane_major + _frag_core_t),
+    as (best_score, best_slot, best_col, best_in (F, B, S))."""
+    from graphchainer_torch.ops import frag_align
+    eq, ln, bn, bi, bl, ss, req, rows = args
+    r = frag_align._frag_core_t(
+        *frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl), **kw)
+    return r[0][0], r[1][0], r[2][0], r[3].permute(2, 1, 0)
+
+
+def frag_shape(args, kw) -> str:
+    F, B = args[2].shape
+    return f"F={F} B={B} S={kw['S']} max_in={kw['max_in']}"
+
+
+def check_frag(label, args, kw, reps=50):
+    """The kernel against its plain version on one batch (every output,
+    max abs diff 0), then both timed.  Returns a dict of the readings."""
+    import torch
+    from graphchainer_torch.ops import frag_kernel
+    got = frag_kernel.frag_core_cuda(*args, **kw)
     torch.cuda.synchronize()
-    ref = frag_align._frag_core_t(*args, **kw)
-    ref = (ref[0][0], ref[1][0], ref[2][0], ref[3].permute(2, 1, 0))
-    err = 0
+    ref = None
+
+    def plain():
+        nonlocal ref
+        ref = frag_plain(args, kw)
+    plain_ms = cuda_ms(plain, warm=False)
     for name, a, b in zip(("best_score", "best_slot", "best_col",
                            "best_in"), got, ref):
         e = max_abs_diff(a, b)
-        err = max(err, e)
         if e:
-            raise AssertionError(f"frag_core B={B} max_in={max_in}: {name} "
-                                 f"differs from the plain version (max "
-                                 f"abs diff {e})")
-    ms = cuda_ms(lambda: frag_kernel.frag_core_cuda(*k_args, **kw), reps=5)
-    plain_ms = cuda_ms(lambda: frag_align._frag_core_t(*args, **kw),
-                       warm=False)
-    F = slot_eq_t.shape[2]
-    bnd = frag_bound(k_args, kw["S"], max_in, got)
-    log(f"frag_core B={B} (batch B_eff={b_eff}) S={kw['S']} "
-        f"max_in={max_in} n_levels={kw['n_levels']} F={F}: exact; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd[0]:.5f} ms by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
-    return err, ms, plain_ms, bnd
+            raise AssertionError(f"frag_core ({label}, {frag_shape(args, kw)})"
+                                 f": {name} differs from the plain version "
+                                 f"(max abs diff {e})")
+    ms = cuda_ms(lambda: frag_kernel.frag_core_cuda(*args, **kw), reps=reps)
+    bnd = frag_bound(args, kw, got)
+    log(f"frag_core ({label}) {frag_shape(args, kw)} "
+        f"n_levels={kw['n_levels']}: exact; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} ({bnd[2]} "
+        f"bytes, {bnd[3]} operations)")
+    return dict(label=label, shape=frag_shape(args, kw), ms=ms,
+                plain_ms=plain_ms, bound=bnd)
+
+
+def time_frag_designs(label, args, kw, reps=50):
+    """The warp-pair design against the thread-per-fragment design on one
+    batch, in turns (new, old, old, new), `reps` launches a turn.  Both
+    must give the same outputs.  Returns {"new": [ms, ms], "old": [...]}:
+    the old design's time includes nothing but its launch (its lane-major
+    inputs are built before)."""
+    import torch
+    from graphchainer_torch.ops import frag_align, frag_kernel
+    from graphchainer_torch.ops.myers import to_i32_bits
+    eq, ln, bn, bi, bl, ss, req, rows = args
+    lm = [to_i32_bits(a).contiguous() for a in
+          frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl)]
+    fns = {"new": lambda: frag_kernel.frag_core_cuda(*args, **kw),
+           "old": lambda: frag_kernel.frag_core_thread_cuda(*lm, **kw)}
+    outs = {k: fn() for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    for a, b in zip(outs["new"], outs["old"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"frag_core ({label}): the two designs "
+                                 "differ")
+    turns = {"new": [], "old": []}
+    for k in ("new", "old", "old", "new"):
+        turns[k].append(cuda_ms(fns[k], reps=reps))
+    log(f"frag_core ({label}) {frag_shape(args, kw)}: warp-pair design "
+        f"{turns['new'][0]:.4f} / {turns['new'][1]:.4f} ms, thread per "
+        f"fragment {turns['old'][0]:.4f} / {turns['old'][1]:.4f} ms")
+    return turns
+
+
+def ptxas_report(log_text: str, kernel: str):
+    """{instantiation: (registers, stack frame, spill stores, spill loads)}
+    of one kernel from nvcc -Xptxas -v output."""
+    import re
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
+                      r"(?: for|$)", line.strip())
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(rf"\d+{kernel}ILi(\d+)E", fn or "")
+        if not m:
+            continue
+        key = f"{kernel}<{m.group(1)}>"
+        regs, stack, st, ld = out.get(key, (None, None, None, None))
+        m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", line)
+        if m2:
+            stack, st, ld = (int(x) for x in m2.groups())
+        m3 = re.search(r"Used (\d+) registers", line)
+        if m3:
+            regs = int(m3.group(1))
+        out[key] = (regs, stack, st, ld)
+    return out
+
+
+def check_frag_all(model, reads, dev):
+    """frag_core on the main path's batch as run_fragments hands it over
+    (128 reads, the band at its own width B_eff), the same batch padded to
+    B=32, the escalation shape (16 reads, B=96 padded, max_in=12) and the
+    hard batches; the two designs timed in turns at the main shape and at
+    B=96; nvcc's report of the kernel's registers and spills."""
+    from graphchainer_torch.ops import _cuda
+    cfg = model.cfg
+    main = frag_inputs(model, reads[:128], cfg.band_slots, cfg.max_in,
+                       cfg.band_slack, dev)
+    wide = frag_inputs(model, reads[:16], cfg.escalate_band,
+                       cfg.escalate_max_in, cfg.band_slack * 2, dev,
+                       pad_to=cfg.escalate_band)
+    cases = [
+        check_frag(f"main path, B_eff={main[2]}", *main[:2]),
+        check_frag(f"main batch padded to B={cfg.band_slots}",
+                   *frag_inputs(model, reads[:128], cfg.band_slots,
+                                cfg.max_in, cfg.band_slack, dev,
+                                pad_to=cfg.band_slots)[:2]),
+        check_frag(f"escalation, B_eff={wide[2]} padded", *wide[:2]),
+        check_frag("hard batch", *frag_hard_inputs(dev, 3)),
+        check_frag("hard batch, wide", *frag_hard_inputs(
+            dev, 4, F=64, B=128, max_in=12, S=2)),
+    ]
+    designs = {"main": time_frag_designs("main path", *main[:2]),
+               "escalation": time_frag_designs("escalation", *wide[:2])}
+    ptx = ptxas_report(_cuda.ptxas_log(), "frag_core_kernel")
+    log(f"ptxas, frag_core_kernel<fragments a block> (registers, stack "
+        f"frame, spill stores, spill loads bytes): {ptx}")
+    if not ptx:
+        raise AssertionError("no ptxas report of frag_core_kernel")
+    for name, (_, stack, st, ld) in ptx.items():
+        if stack or st or ld:
+            raise AssertionError(f"{name}: {stack} bytes stack frame, "
+                                 f"{st} / {ld} bytes spilled")
+    return dict(cases=cases, designs=designs, ptxas=ptx)
 
 
 def polish_inputs(pairs, dev):
@@ -310,17 +432,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def frag_bound(k_args, S, max_in, out):
-    """Every input read once, every output written once; operations of
-    the live slots only: ~66 per merge candidate (33 adds and mins), ~22
-    per column advanced, each slice."""
-    slot_len_t, band_in_t, band_level_t = k_args[1], k_args[2], k_args[3]
-    live = int((band_level_t >= 0).sum())
-    cands = live + int((band_in_t >= 0).sum())
-    cols = int(slot_len_t.clamp(min=0).sum())
-    ops = S * (66 * cands + 22 * cols)
-    b = nbytes(*k_args) + nbytes(out.best_score, out.best_slot,
-                                 out.best_col, out.best_in)
+def frag_bound(args, kw, out):
+    """Bytes: every input in its host type read once (the band arrays, the
+    read planes, shifts and rows), the node table's rows that the bands
+    name once each (16 bytes of Eq words and 4 of length), every output
+    written once.  Operations of the live slots only: ~66 per merge
+    candidate (33 adds and mins), ~22 per column advanced, each slice."""
+    import torch
+    from graphchainer_torch.ops import frag_align
+    eq, ln, bn, bi, bl, ss, req, rows = args
+    slot_len = frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl)[1]
+    live = int((bl >= 0).sum())
+    cands = live + int((bi >= 0).sum())
+    cols = int(slot_len.clamp(min=0).sum())
+    ops = kw["S"] * (66 * cands + 22 * cols)
+    n_rows = int(torch.unique(bn[bn >= 0]).numel())
+    b = (nbytes(bn, bi, bl, ss, req, rows) + 20 * n_rows
+         + nbytes(out.best_score, out.best_slot, out.best_col, out.best_in))
     return bound(b, ops) + (b, ops)
 
 
@@ -490,10 +618,7 @@ def main() -> int:
     model = ChainerModel(g, mpc, index, device="cuda")
 
     # ---- 2. kernels vs plain versions on the card
-    frag_err, frag_ms, frag_plain, frag_bnd = check_frag(
-        model, reads[:128], 32, 4, 8, dev)
-    e2 = check_frag(model, reads[:16], 96, 12, 16, dev)[0]
-    frag_err = max(frag_err, e2)
+    frag = check_frag_all(model, reads, dev)
     n_timed = 32 if quick else 128
     pairs_all = stitched_pairs(model, reads[:n_timed])
     # the main path's batch, whole: the warp entries' grid and the
@@ -617,15 +742,30 @@ def main() -> int:
         return {str(bw): round(timed[bw][name][which], 4)
                 for bw in sorted(timed)}
 
+    frag_src = "graphchainer_torch/csrc/frag_core.cu"
+    frag_tpu = "graphchainer_tpu/ops/pallas_frag.py:278"
+    fm = frag["cases"][0]
     core_src = "graphchainer_torch/csrc/polish_core.cu"
     walk_src = "graphchainer_torch/csrc/polish_walk.cu"
     core_tpu = "graphchainer_tpu/ops/pallas_polish2.py:182"
     walk_tpu = "graphchainer_tpu/ops/linear_align.py:444"
     b8 = bounds[8]
     kernels = [
-        entry("frag_core", "graphchainer_torch/csrc/frag_core.cu",
-              "graphchainer_tpu/ops/pallas_frag.py:278", frag_err, frag_ms,
-              frag_plain, frag_bnd),
+        entry("frag_core", frag_src, frag_tpu, 0, fm["ms"], fm["plain_ms"],
+              fm["bound"], shape=fm["shape"] + " (the main path's batch of "
+              "128 reads, as run_fragments launches it)",
+              ms_by_case={c["label"]: round(c["ms"], 4)
+                          for c in frag["cases"]},
+              plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
+                                for c in frag["cases"]},
+              turns_ms={k: [round(x, 4) for x in v["new"]]
+                        for k, v in frag["designs"].items()},
+              ptxas={k: list(v) for k, v in frag["ptxas"].items()}),
+        entry("frag_core_thread", frag_src, frag_tpu, 0,
+              sum(frag["designs"]["main"]["old"]) / 2, fm["plain_ms"],
+              fm["bound"], shape=fm["shape"],
+              turns_ms={k: [round(x, 4) for x in v["old"]]
+                        for k, v in frag["designs"].items()}),
         entry("polish_core", core_src, core_tpu, pol_err,
               timed[8]["polish_core"]["warp"], pol[8][2], b8["polish_core"],
               reads=len(pairs_all), ms_by_bw=by_bw("polish_core", "warp"),

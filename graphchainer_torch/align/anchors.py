@@ -2,9 +2,10 @@
 
 JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
 (GraphTensors, assemble_batch_cols, pack_row_planes, level_bucket,
-_warn_truncated; JobCols lives in native.py) plus `run_fragments`, which uploads the
-node tables once and runs ops/frag_align.align_fragments_tl over a whole
-batch on the model's device.
+_warn_truncated; JobCols lives in native.py) plus `run_fragments`, which
+runs ops/frag_kernel.frag_core over a whole batch on the model's device:
+the node tables stay resident there, the band arrays go up in their host
+types (`fragment_inputs`).
 
 Each fragment with a seed at read row r0 and graph position (v, o) is two
 jobs: forward rows read[r0:end) from node v trimmed to start at offset o,
@@ -26,7 +27,7 @@ from graphchainer_torch.constants import MAX_IN_DEGREE
 from graphchainer_torch.graph.alignment_graph import AlignmentGraph
 from graphchainer_torch.utils import timers
 from graphchainer_torch.utils.bits import reverse_eq_planes
-from graphchainer_torch.ops import frag_align
+from graphchainer_torch.ops import frag_align, frag_kernel
 from graphchainer_torch.ops.myers import to_i32_bits
 
 W = 32
@@ -305,6 +306,49 @@ def pad_rows_code0(req: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return out
 
 
+def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
+                    band_in: np.ndarray, seed_shift: np.ndarray,
+                    req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
+                    band_level: np.ndarray, device):
+    """The arguments of ops/frag_kernel.frag_core for a batch on
+    `device`: the resident node tables, then the band arrays as the band
+    build made them (int32 ids, int8 in-edges and levels, int32 shifts,
+    uint32 planes as int32 bits, int32 rows), with the 2-bit format's row
+    padding where the reference would use it.  The band arrays go up in
+    one copy.  Returns (args, keyword args)."""
+    dev_eq, dev_len = gx.device_tables(device)
+    B = band_nodes_cat.shape[1]
+    n_levels = level_bucket(band_level, B)
+    if code0_padding(band_nodes_cat, band_in, req, rows, max_in):
+        req = pad_rows_code0(req, rows)
+    req32 = np.ascontiguousarray(req, dtype=np.uint32).view(np.int32)
+    band = upload([np.ascontiguousarray(a, dtype=t) for a, t in (
+        (band_nodes_cat, np.int32), (band_in, np.int8),
+        (band_level, np.int8), (seed_shift, np.int32), (req32, np.int32),
+        (rows, np.int32))], dev_eq.device)
+    return (dev_eq, dev_len) + tuple(band), dict(S=S, max_in=max_in,
+                                                 n_levels=n_levels)
+
+
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int32): torch.int32}
+
+
+def upload(arrays, device):
+    """Contiguous numpy arrays on `device` in one copy: packed at 16-byte
+    offsets into one byte buffer, handed back as views of its copy in
+    their own dtypes and shapes (each 16-byte aligned)."""
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    buf = np.empty(n, dtype=np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev_buf = torch.from_numpy(buf).to(device)
+    return [dev_buf[o:o + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
 def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
                   band_in: np.ndarray, seed_shift: np.ndarray,
                   req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
@@ -312,18 +356,6 @@ def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
     """The fragment DP over a whole batch on `device` (one call: no
     chunking, wire packing or band cache).  Returns a numpy FragResult
     whose best_in is int8 (F, B, S)."""
-    dev_eq, dev_len = gx.device_tables(device)
-    B = band_nodes_cat.shape[1]
-    n_levels = level_bucket(band_level, B)
-    if code0_padding(band_nodes_cat, band_in, req, rows, max_in):
-        req = pad_rows_code0(req, rows)
-    dev = dev_eq.device
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, torch.int64)
-
-    res = frag_align.align_fragments_tl(
-        dev_eq, dev_len, t(band_nodes_cat), t(band_in), t(seed_shift),
-        t(req.astype(np.int64)), t(rows), S, max_in, t(band_level),
-        n_levels)
-    return frag_align.FragResult(*(x.cpu().numpy() for x in res))
+    args, kw = fragment_inputs(gx, band_nodes_cat, band_in, seed_shift, req,
+                               rows, S, max_in, band_level, device)
+    return frag_kernel.to_numpy(frag_kernel.frag_core(*args, **kw))

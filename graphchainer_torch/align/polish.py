@@ -93,9 +93,10 @@ def _ops_cap(rmax: int, pmax: int, bw: int) -> int:
 
 
 def polish_batch(reads: Sequence[str], paths: Sequence[str], bw: int = 8,
-                 table=None, device="cpu") -> List[PolishOutcome]:
-    """Global NW of each read vs its path sequence, batched on `device`,
-    with the band-doubling retry.
+                 table=None, device="cuda") -> List[PolishOutcome]:
+    """Global NW of each read vs its path sequence, batched on `device`
+    (the card unless the caller asks for the CPU), with the band-doubling
+    retry.
 
     table: optional (dev_tbl, row_idx) — build_read_table's table and the
     row of each read in it (rows must hold exactly reads[i]'s codes)."""

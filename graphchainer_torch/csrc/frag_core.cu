@@ -1,32 +1,63 @@
 // Banded fragment-to-graph Myers DP, fresh windows (the CLC fragment stage).
 //
 // Replaces: graphchainer_tpu/ops/pallas_frag.py::frag_core_pallas (body
-// _kernel).  Computes exactly graphchainer_torch/ops/frag_align.py
-// _frag_core_t (= the JAX _frag_core_t with carried, want_state and
-// want_xcells off): per fragment, per 32-row slice, per topological level,
-// every band slot of the level merges its candidate words (seed injection
-// on slice 0, vertical carry on later slices, up to max_in in-band
-// predecessors advanced one column) by exact elementwise min over 33
-// expanded row scores, then advances its remaining columns; the winning
-// candidate of each slot and slice goes to best_in, the best end cell to
-// best_score / best_slot / best_col.
+// _kernel), together with the gather in front of it.  Computes exactly
+// graphchainer_torch/ops/frag_align.py lane_major + _frag_core_t (= the
+// JAX _frag_core_t with carried, want_state and want_xcells off): per
+// fragment, per 32-row slice, per topological level, every band slot of
+// the level merges its candidate words (seed injection on slice 0,
+// vertical carry on later slices, up to max_in in-band predecessors
+// advanced one column) by exact elementwise min over 33 expanded row
+// scores, then advances its remaining columns; the winning candidate of
+// each slot and slice goes to best_in, the best end cell to best_score /
+// best_slot / best_col.
 //
-// What bounds it on the H100: integer ALU and __popc.  A slot costs about
-// 33 adds and mins per candidate for the merge plus ~20 ops per column;
-// memory traffic is small (a few words in, B*S bytes out per fragment).
+// Inputs are fragment-major in their host types, as the band build makes
+// them: band_nodes int32 (F, B), band_in int8 (F, B, max_in), band_level
+// int8 (F, B), seed_shift int32 (F,), req uint32 bits (F, S, 4), rows int32
+// (F,), and the resident node table node_eq (N2, 4) / node_len (N2,).  The
+// kernel gathers each slot's Eq words and length itself and trims slot 0
+// by the seed shift.
 //
-// Design: one thread per fragment.  The Pallas kernel put fragments on the
-// 128 VPU lanes and evaluated every slot at every level under masks; here
-// a thread sorts its slots by level once and visits each slot once per
-// slice, so pad slots and other levels cost nothing.  The 33 row scores of
-// the merge are running prefix sums of the candidate's delta bits, held in
-// registers (fully unrolled).  Per-slot end words and the boundary state
-// of the previous slice live in per-thread arrays (local memory, cached).
-// Inputs keep the lane-major (..., F) layout, so neighbouring threads read
-// neighbouring words.  Within a level every slot reads its predecessors'
-// end words as they were before the level (as the reference's masked
-// commit does): results of a level are staged and committed after it.
-// Integer division that can see a negative operand is floor division.
+// What bounds it on the H100: neither bytes nor operations.  A batch of
+// the main path (F ~ 10k, B = 8, S = 2) moves ~1.5 MB and does ~31 M
+// integer operations, half a microsecond either way.  What is left is the
+// dependent chain of each fragment: every column of a slot is one Myers
+// step on the words of the column before (~8 dependent instructions), a
+// slot has ~15 columns, and a fragment ~3 live slots per slice.  So the
+// time is the longest chain in a warp, times the latency of an integer
+// instruction, over the few warps each scheduler holds.
+//
+// Design, against that chain:
+// - Two lanes per fragment run the slices as a wavefront: slice s of the
+//   k-th slot (in level order) needs slice s - 1 of the same slot and
+//   slice s of lower levels only, so lane 0 takes slices 0, 2, ... and
+//   lane 1 slices 1, 3, ..., one step behind; each step ends with a block
+//   barrier.  A fragment whose band has an in-edge that does not come from
+//   a lower level (band_build never makes one) runs its slices on lane 0
+//   alone, which needs no such order.
+// - 16 fragments (one warp) per block, so a batch of 10k fragments gives
+//   640 blocks and all 132 SMs work.
+// - No local memory: per-slot state lives in shared memory, slot-major
+//   with the fragment as the fast index; the 33 row scores of a merge are
+//   registers.  A fragment's inputs are loaded at once, by the whole
+//   block, as independent coalesced loads, before the first slice.
+// - Only candidates that can change an output are merged.  Every
+//   candidate word has disjoint vp / vn bits, so its row scores move by
+//   one a row and a merge of one word gives back that word: the 33-row
+//   merge runs only where two or more words remain.  An invalid in-edge
+//   or seed candidate is the word (ONES, 0, BIG) and an invalid vertical
+//   carry (ONES, 0, BIG + 32); both lie on or above any valid word whose
+//   bottom score is at most BIG - 64 on every row, so they join the merge
+//   only where no such word exists, and the vertical one only without the
+//   other (which lies below it).
+// - best_in is staged per block in shared memory (IN_NONE where no slot
+//   was processed) and stored once, as 16-byte pieces of the block's
+//   contiguous run of (F, B, S).
+// Within a level every slot reads its predecessors' end words as they were
+// before the level: end words are kept per slice parity, and a slot reads
+// a predecessor of a lower level from its own slice and any other from
+// the slice before (the reference's masked commit).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +66,7 @@ namespace {
 
 constexpr int W = 32;
 constexpr int BIG = 1 << 28;
+constexpr int REAL_MAX = BIG - 2 * W;   // see the note on merging
 constexpr int IN_NONE = -1;
 constexpr int IN_SEED = -2;
 constexpr int IN_VERT = -3;
@@ -64,6 +96,26 @@ __device__ __forceinline__ int advance(uint32_t& vp, uint32_t& vn, int& sb,
   return hout;
 }
 
+// The same step with the boundary delta as its two bits (hpos, hneg, not
+// both set); the bottom row's delta comes back as the same two bits.
+// With vp & vn = 0, which every word of the DP keeps, ph and mh are
+// disjoint, so hout = hpo - hno.
+__device__ __forceinline__ void column_step(uint32_t& vp, uint32_t& vn, uint32_t eq,
+                                     uint32_t hpos, uint32_t hneg,
+                                     uint32_t& hpo, uint32_t& hno) {
+  eq |= hneg;
+  const uint32_t xv = eq | vn;
+  const uint32_t xh = (((eq & vp) + vp) ^ vp) | eq;
+  uint32_t ph = vn | ~(xh | vp);
+  uint32_t mh = vp & xh;
+  hpo = ph >> 31;
+  hno = mh >> 31;
+  ph = (ph << 1) | hpos;
+  mh = (mh << 1) | hneg;
+  vp = mh | ~(xv | ph);
+  vn = ph & xv;
+}
+
 // Fold a candidate word into the 33 expanded row scores.
 __device__ __forceinline__ void acc_add(int& before, int (&rows)[W],
                                         uint32_t vp, uint32_t vn, int sb) {
@@ -76,14 +128,424 @@ __device__ __forceinline__ void acc_add(int& before, int (&rows)[W],
   }
 }
 
+// The merge of a slot's candidate words: the first word is held as it is;
+// the row scores are built from the second word on.
+struct Merge {
+  int n = 0;
+  uint32_t vp = 0, vn = 0;
+  int sb = 0;
+  int before = BIG;
+  int rows[W];
+
+  __device__ __forceinline__ Merge() {
+#pragma unroll
+    for (int r = 0; r < W; ++r) rows[r] = BIG;
+  }
+  __device__ __forceinline__ void add(uint32_t wvp, uint32_t wvn, int wsb) {
+    if (n == 0) {
+      vp = wvp; vn = wvn; sb = wsb;
+    } else {
+      if (n == 1) acc_add(before, rows, vp, vn, sb);
+      acc_add(before, rows, wvp, wvn, wsb);
+    }
+    ++n;
+  }
+  // repack: bits only where adjacent row scores differ by +-1
+  __device__ __forceinline__ void result(uint32_t& cvp, uint32_t& cvn,
+                                         int& csb) const {
+    if (n == 1) { cvp = vp; cvn = vn; csb = sb; return; }
+    cvp = 0; cvn = 0;
+    int prev = before;
+#pragma unroll
+    for (int r = 0; r < W; ++r) {
+      const int d = rows[r] - prev;
+      cvp |= (d == 1 ? 1u : 0u) << r;
+      cvn |= (d == -1 ? 1u : 0u) << r;
+      prev = rows[r];
+    }
+    csb = rows[W - 1];
+  }
+};
+
 __device__ __forceinline__ int score_masked(uint32_t vp, uint32_t vn, int sb,
                                             uint32_t m) {
   return sb - __popc(vp & m) + __popc(vn & m);
 }
 
+// Shared memory of a block of FPB fragments: per-slot arrays are
+// [.., slot, fragment] with the fragment fastest.
+struct Smem {
+  int4* rq;          // [FPB][S] read row planes
+  uint32_t* seq;     // [4][B][FPB] slot Eq words (seed-trimmed)
+  int* slen;         // [B][FPB] slot lengths (seed-trimmed)
+  int* lvl;          // [B][FPB] levels
+  uint32_t* evp;     // [2][B][FPB] end words by slice parity
+  uint32_t* evn;
+  int* esb;
+  int* ssb;          // [B][FPB] previous slice: column-0 bottom score
+  uint32_t* hp;      //   and bottom-row horizontal deltas
+  uint32_t* hn;
+  int* nsteps;       // [FPB] wavefront steps of each fragment
+  int* kcount;       // [FPB] processed slots
+  int* serial;       // [FPB] 1: lane 0 runs every slice
+  uint8_t* order;    // [B][FPB] processed slots sorted by level
+  int8_t* bin;       // [FPB][B][max_in] in-edges, as in device memory
+  int8_t* stage;     // best_in of the block's fragments, [FPB][B][S]
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Byte offsets of the Smem arrays; returns the total.
+__host__ __device__ inline size_t smem_layout(int FPB, int B, int S,
+                                              int max_in, size_t* off) {
+  const size_t n = (size_t)B * FPB;
+  size_t o = 0;
+  off[0] = o; o += (size_t)FPB * S * 16;          // rq
+  off[1] = o; o += 4 * n * 4;                     // seq
+  off[2] = o; o += n * 4;                         // slen
+  off[3] = o; o += n * 4;                         // lvl
+  off[4] = o; o += 2 * n * 4;                     // evp
+  off[5] = o; o += 2 * n * 4;                     // evn
+  off[6] = o; o += 2 * n * 4;                     // esb
+  off[7] = o; o += n * 4;                         // ssb
+  off[8] = o; o += n * 4;                         // hp
+  off[9] = o; o += n * 4;                         // hn
+  off[10] = o; o += (size_t)FPB * 4;              // nsteps
+  off[11] = o; o += (size_t)FPB * 4;              // kcount
+  off[12] = o; o += (size_t)FPB * 4;              // serial
+  off[13] = o; o += n;                            // order
+  o = align16(o);
+  off[14] = o; o += n * max_in;                   // bin
+  o = align16(o);
+  off[15] = o; o += n * S + 16;                   // stage (+ alignment)
+  return align16(o);
+}
+
+template <int FPB>
+__global__ void __launch_bounds__(2 * FPB)
+frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
+                 const int* __restrict__ node_len,        // (N2,)
+                 const int* __restrict__ band_nodes,      // (F, B)
+                 const int8_t* __restrict__ band_in,      // (F, B, max_in)
+                 const int8_t* __restrict__ band_level,   // (F, B)
+                 const int* __restrict__ seed_shift,      // (F,)
+                 const int4* __restrict__ req,            // (F, S, 4)
+                 const int* __restrict__ rows,            // (F,)
+                 int N2, int F, int B, int S, int max_in, int n_levels,
+                 int* __restrict__ best_score, int* __restrict__ best_slot,
+                 int* __restrict__ best_col,
+                 int8_t* __restrict__ best_in) {          // (F, B, S)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  size_t off[16];
+  smem_layout(FPB, B, S, max_in, off);
+  Smem sm;
+  sm.rq = (int4*)(smem_raw + off[0]);
+  sm.seq = (uint32_t*)(smem_raw + off[1]);
+  sm.slen = (int*)(smem_raw + off[2]);
+  sm.lvl = (int*)(smem_raw + off[3]);
+  sm.evp = (uint32_t*)(smem_raw + off[4]);
+  sm.evn = (uint32_t*)(smem_raw + off[5]);
+  sm.esb = (int*)(smem_raw + off[6]);
+  sm.ssb = (int*)(smem_raw + off[7]);
+  sm.hp = (uint32_t*)(smem_raw + off[8]);
+  sm.hn = (uint32_t*)(smem_raw + off[9]);
+  sm.nsteps = (int*)(smem_raw + off[10]);
+  sm.kcount = (int*)(smem_raw + off[11]);
+  sm.serial = (int*)(smem_raw + off[12]);
+  sm.order = (uint8_t*)(smem_raw + off[13]);
+  sm.bin = (int8_t*)(smem_raw + off[14]);
+
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int fl = t >> 1;                 // fragment of the block
+  const int j = t & 1;                   // lane of the fragment
+  const int f0 = blockIdx.x * FPB;
+  const int nf = min(FPB, F - f0);
+  const int f = f0 + fl;
+  const bool live = fl < nf;
+  const int n = B * FPB;
+
+  // best_in's run of this block, and its staging copy with the same
+  // alignment mod 16
+  int8_t* const gout = best_in + (size_t)f0 * B * S;
+  const int run = nf * B * S;
+  const int mis = (int)((uintptr_t)gout & 15u);
+  sm.stage = (int8_t*)(smem_raw + off[15]) + mis;
+
+  // ---- the block's inputs, all at once: its fragments own one
+  // contiguous run of every array
+  const int nslot = nf * B;
+#pragma unroll 4
+  for (int i = t; i < nslot; i += nt) {
+    const int q = i / B, b = i - q * B;
+    const int id = band_nodes[(size_t)f0 * B + i];
+    const int idc = min(max(id, 0), N2 - 1);
+    const int4 e = node_eq[idc];
+    int len = id >= 0 ? node_len[idc] : 0;
+    uint32_t sh = 0;
+    if (b == 0) {
+      const int ss = seed_shift[f0 + q];
+      sh = (uint32_t)ss & 31u;
+      len -= ss;
+    }
+    const int o = b * FPB + q;
+    sm.seq[o] = (uint32_t)e.x >> sh;
+    sm.seq[n + o] = (uint32_t)e.y >> sh;
+    sm.seq[2 * n + o] = (uint32_t)e.z >> sh;
+    sm.seq[3 * n + o] = (uint32_t)e.w >> sh;
+    sm.slen[o] = len;
+    sm.lvl[o] = band_level[(size_t)f0 * B + i];
+  }
+  const int8_t* gin = band_in + (size_t)f0 * B * max_in;
+  const int nbin = nslot * max_in;
+  if ((((uintptr_t)gin) & 3u) == 0 && (nbin & 3) == 0) {
+#pragma unroll 4
+    for (int i = t; i < (nbin >> 2); i += nt)
+      reinterpret_cast<int*>(sm.bin)[i] = reinterpret_cast<const int*>(gin)[i];
+  } else {
+#pragma unroll 4
+    for (int i = t; i < nbin; i += nt) sm.bin[i] = gin[i];
+  }
+  for (int i = t; i < nf * S; i += nt) sm.rq[i] = req[(size_t)f0 * S + i];
+  for (int i = t; i < FPB; i += nt) sm.serial[i] = 0;
+  for (int i = t; i < n; i += nt) {
+    sm.evp[i] = 0; sm.evp[n + i] = 0;
+    sm.evn[i] = 0; sm.evn[n + i] = 0;
+    sm.esb[i] = BIG; sm.esb[n + i] = BIG;
+    sm.ssb[i] = BIG; sm.hp[i] = 0; sm.hn[i] = 0;
+  }
+  for (int i = t; i < run; i += nt) sm.stage[i] = (int8_t)IN_NONE;
+  __syncthreads();
+
+  // ---- per fragment, lane 0 sorts the processed slots by level (stable);
+  // the block checks that every in-edge comes from a lower level
+  if (live && j == 0) {
+    int k = 0;
+    for (int b = 0; b < B; ++b) {
+      const int l = sm.lvl[b * FPB + fl];
+      if (l < 0 || l >= n_levels) continue;
+      int q = k++;
+      while (q > 0 && sm.lvl[sm.order[(q - 1) * FPB + fl] * FPB + fl] > l) {
+        sm.order[q * FPB + fl] = sm.order[(q - 1) * FPB + fl];
+        --q;
+      }
+      sm.order[q * FPB + fl] = (uint8_t)b;
+    }
+    sm.kcount[fl] = k;
+  }
+  for (int i = t; i < nslot; i += nt) {
+    const int q = i / B, b = i - q * B;
+    const int l = sm.lvl[b * FPB + q];
+    if (l < 0 || l >= n_levels) continue;
+    for (int e = 0; e < max_in; ++e) {
+      const int u = sm.bin[i * max_in + e];
+      if (u < 0 || u >= B) continue;
+      const int lu = sm.lvl[u * FPB + q];
+      if (lu >= 0 && lu < n_levels && lu >= l) sm.serial[q] = 1;
+    }
+  }
+  __syncthreads();
+
+  int K = 0, ser = 0;
+  if (live) { K = sm.kcount[fl]; ser = sm.serial[fl]; }
+  // slice s starts at step (s / 2) * P + s % 2 on the wavefront
+  const int P = ser ? K : max(K, 2);
+  if (live && j == 0)
+    sm.nsteps[fl] = K == 0 ? 0
+                  : ser    ? S * K
+                           : ((S - 1) >> 1) * P + ((S - 1) & 1) + K;
+  __syncthreads();
+  int T = 0;
+  for (int q = 0; q < nf; ++q) T = max(T, sm.nsteps[q]);
+
+  int fb_sc = BIG, fb_slot = 0, fb_col = 0;   // this lane's best end cell
+  const int fl_rows = live ? rows[f] : 1;
+  const int end_slice = floordiv(fl_rows - 1, W);
+  const int er = (fl_rows - 1) - end_slice * W;         // floor mod, 0..31
+  const uint32_t erm = er < W - 1 ? (ONES << (er + 1)) : 0u;
+  const int b0_sb = W;                                  // source_word(0)
+
+  int s = (!live || (ser && j == 1)) ? S : j;   // this lane's slice
+  int kk = ser ? 0 : -j;                        // its position in it
+  const int sstep = ser ? 1 : 2;
+
+  for (int step = 0; step < T; ++step) {
+    if (s < S && kk >= 0 && kk < K) {
+      const int b = sm.order[kk * FPB + fl];
+      const int ib = b * FPB + fl;
+      const int cur = s & 1;
+      const int lv = sm.lvl[ib];
+      const int slen = sm.slen[ib];
+      const bool active = slen > 0;
+      const uint32_t sq0 = sm.seq[ib], sq1 = sm.seq[n + ib];
+      const uint32_t sq2 = sm.seq[2 * n + ib], sq3 = sm.seq[3 * n + ib];
+      const int4 rv = sm.rq[fl * S + s];
+      const uint32_t r0 = (uint32_t)rv.x, r1 = (uint32_t)rv.y;
+      const uint32_t r2 = (uint32_t)rv.z, r3 = (uint32_t)rv.w;
+      const bool at_end = end_slice == s;
+      int pssb = BIG;
+      uint32_t php = 0, phn = 0;
+      if (s > 0) { pssb = sm.ssb[ib]; php = sm.hp[ib]; phn = sm.hn[ib]; }
+      const uint32_t eq0 = ((sq0 & 1u) ? r0 : 0u) | ((sq1 & 1u) ? r1 : 0u)
+                         | ((sq2 & 1u) ? r2 : 0u) | ((sq3 & 1u) ? r3 : 0u);
+
+      Merge mg;
+      bool real = false, inv = false, vinv = false;
+      int cbest = IN_NONE;
+      int csb_run = BIG;
+      if (s == 0) {
+        if (b == 0) {   // seed injection: the boundary word, one column on
+          uint32_t avp = ONES, avn = 0;
+          int asb = b0_sb;
+          advance(avp, avn, asb, eq0, 1);
+          mg.add(avp, avn, asb);
+          real |= asb <= REAL_MAX;
+          if (asb < csb_run) cbest = IN_SEED;
+          csb_run = min(csb_run, asb);
+        } else {
+          inv = true;
+        }
+      } else if (active && pssb < BIG) {   // vertical carry
+        const int vsb = pssb + W;
+        mg.add(ONES, 0u, vsb);
+        real |= vsb <= REAL_MAX;
+        if (vsb < csb_run) cbest = IN_VERT;
+        csb_run = min(csb_run, vsb);
+      } else {
+        vinv = true;
+      }
+      for (int e = 0; e < max_in; ++e) {
+        const int u = sm.bin[(fl * B + b) * max_in + e];
+        if (u < 0 || !active) { inv = true; continue; }
+        uint32_t uvp = 0, uvn = 0;
+        int usb = BIG;
+        if (u < B) {
+          const int ub = sm.lvl[u * FPB + fl] < lv ? cur : cur ^ 1;
+          const int iu = ub * n + u * FPB + fl;
+          uvp = sm.evp[iu]; uvn = sm.evn[iu]; usb = sm.esb[iu];
+        }
+        if (usb >= BIG) { inv = true; continue; }
+        int hin = 1;
+        if (s > 0 && pssb < BIG) {
+          const int ubs = usb - __popc(uvp) + __popc(uvn);
+          hin = max(-1, min(1, pssb - ubs));
+        }
+        advance(uvp, uvn, usb, eq0, hin);
+        mg.add(uvp, uvn, usb);
+        real |= usb <= REAL_MAX;
+        if (usb < csb_run) cbest = u;
+        csb_run = min(csb_run, usb);
+      }
+      if (!real) {
+        if (inv) mg.add(ONES, 0u, BIG);
+        else if (vinv) mg.add(ONES, 0u, BIG + W);
+      }
+      uint32_t cvp, cvn;
+      int csb;
+      mg.result(cvp, cvn, csb);
+      if (s == 0 && b == 0 && slen == 0) {   // len-0 seed slot
+        cvp = ONES; cvn = 0; csb = b0_sb; cbest = IN_SEED;
+      }
+      const int col0_sb = csb;
+
+      int best_sc = (at_end && active) ? score_masked(cvp, cvn, csb, erm)
+                                       : BIG;
+      int best_cl = 0;
+      uint32_t wvp = cvp, wvn = cvn;
+      int wsb = csb;
+      uint32_t hp_acc = 0, hn_acc = 0;
+      // columns past the slot's length feed nothing observable
+      const int ncol = min(slen, W);
+      // slice 0 enters every column with +1 from above
+      const uint32_t hpin = s > 0 ? php : ONES;
+      const uint32_t hnin = s > 0 ? phn : 0u;
+      for (int c = 1; c < ncol; ++c) {
+        const uint32_t eqc = (((sq0 >> c) & 1u) ? r0 : 0u)
+                           | (((sq1 >> c) & 1u) ? r1 : 0u)
+                           | (((sq2 >> c) & 1u) ? r2 : 0u)
+                           | (((sq3 >> c) & 1u) ? r3 : 0u);
+        uint32_t hpo, hno;
+        column_step(wvp, wvn, eqc, (hpin >> c) & 1u, (hnin >> c) & 1u, hpo, hno);
+        wsb += (int)hpo - (int)hno;
+        hp_acc |= hpo << c;
+        hn_acc |= hno << c;
+        if (at_end) {
+          const int sr = score_masked(wvp, wvn, wsb, erm);
+          if (sr < best_sc) { best_sc = sr; best_cl = c; }
+        }
+      }
+      // the end word: column slen - 1 (none past the 32nd column)
+      uint32_t evp_c = 0, evn_c = 0;
+      int esb_c = BIG;
+      if (slen <= W) { evp_c = wvp; evn_c = wvn; esb_c = wsb; }
+      if (!(active || (b == 0 && slen == 0))) esb_c = BIG;
+
+      const int ie = cur * n + ib;
+      sm.evp[ie] = evp_c; sm.evn[ie] = evn_c; sm.esb[ie] = esb_c;
+      sm.ssb[ib] = col0_sb; sm.hp[ib] = hp_acc; sm.hn[ib] = hn_acc;
+      sm.stage[(fl * B + b) * S + s] = (int8_t)cbest;
+      // lowest score, then lowest slot (the reference's strict < over b)
+      if (best_sc < BIG
+          && (best_sc < fb_sc || (best_sc == fb_sc && b < fb_slot))) {
+        fb_sc = best_sc; fb_slot = b; fb_col = best_cl;
+      }
+    }
+    if (++kk == P) { kk = 0; s += sstep; }
+    __syncthreads();
+  }
+
+  // ---- outputs: the two lanes' best end cells, then best_in in one pass
+  const unsigned mask = nt == 32 ? 0xFFFFFFFFu : ((1u << nt) - 1u);
+  const int o_sc = __shfl_xor_sync(mask, fb_sc, 1);
+  const int o_slot = __shfl_xor_sync(mask, fb_slot, 1);
+  const int o_col = __shfl_xor_sync(mask, fb_col, 1);
+  if (live && j == 0) {
+    if (o_sc < fb_sc || (o_sc == fb_sc && o_slot < fb_slot)) {
+      fb_sc = o_sc; fb_slot = o_slot; fb_col = o_col;
+    }
+    best_score[f] = fb_sc;
+    best_slot[f] = fb_slot;
+    best_col[f] = fb_col;
+  }
+  const int head = min(run, (16 - mis) & 15);
+  const int body = (run - head) >> 4;
+  for (int i = t; i < head; i += nt) gout[i] = sm.stage[i];
+  for (int i = t; i < body; i += nt)
+    reinterpret_cast<int4*>(gout + head)[i] =
+        reinterpret_cast<const int4*>(sm.stage + head)[i];
+  for (int i = head + (body << 4) + t; i < run; i += nt) gout[i] = sm.stage[i];
+}
+
+template <int FPB>
+cudaError_t launch(const int4* node_eq, const int* node_len,
+                   const int* band_nodes, const int8_t* band_in,
+                   const int8_t* band_level, const int* seed_shift,
+                   const int4* req, const int* rows, int N2, int F, int B,
+                   int S, int max_in, int n_levels, int* best_score,
+                   int* best_slot, int* best_col, int8_t* best_in,
+                   cudaStream_t stream) {
+  size_t off[16];
+  const size_t bytes = smem_layout(FPB, B, S, max_in, off);
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        frag_core_kernel<FPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (F + FPB - 1) / FPB;
+  frag_core_kernel<FPB><<<blocks, 2 * FPB, bytes, stream>>>(
+      node_eq, node_len, band_nodes, band_in, band_level, seed_shift, req,
+      rows, N2, F, B, S, max_in, n_levels, best_score, best_slot, best_col,
+      best_in);
+  return cudaGetLastError();
+}
+
+// ---- the thread-per-fragment design (lane-major int32 inputs), kept
+// for the timing comparison only
 template <int MAXB>
 __global__ void __launch_bounds__(128)
-frag_core_kernel(const uint32_t* __restrict__ slot_eq,     // (4, B, F)
+frag_core_thread_kernel(const uint32_t* __restrict__ slot_eq,     // (4, B, F)
                  const int* __restrict__ slot_len,         // (B, F)
                  const int* __restrict__ band_in,          // (max_in, B, F)
                  const int* __restrict__ band_level,       // (B, F)
@@ -275,7 +737,7 @@ frag_core_kernel(const uint32_t* __restrict__ slot_eq,     // (4, B, F)
 }
 
 template <int MAXB>
-cudaError_t launch(const uint32_t* slot_eq, const int* slot_len,
+cudaError_t launch_thread(const uint32_t* slot_eq, const int* slot_len,
                    const int* band_in, const int* band_level,
                    const uint32_t* req, const int* frag_len,
                    const int* seed_base, int F, int B, int S, int max_in,
@@ -283,7 +745,7 @@ cudaError_t launch(const uint32_t* slot_eq, const int* slot_len,
                    int* best_col, int8_t* best_in, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (F + threads - 1) / threads;
-  frag_core_kernel<MAXB><<<blocks, threads, 0, stream>>>(
+  frag_core_thread_kernel<MAXB><<<blocks, threads, 0, stream>>>(
       slot_eq, slot_len, band_in, band_level, req, frag_len, seed_base, F, B,
       S, max_in, n_levels, best_score, best_slot, best_col, best_in);
   return cudaGetLastError();
@@ -291,7 +753,31 @@ cudaError_t launch(const uint32_t* slot_eq, const int* slot_len,
 
 }  // namespace
 
-extern "C" int frag_core_launch(const void* slot_eq, const void* slot_len,
+extern "C" int frag_core_launch(const void* node_eq, const void* node_len,
+                                const void* band_nodes, const void* band_in,
+                                const void* band_level,
+                                const void* seed_shift, const void* req,
+                                const void* rows, int N2, int F, int B, int S,
+                                int max_in, int n_levels, void* best_score,
+                                void* best_slot, void* best_col,
+                                void* best_in, void* stream) {
+  if (F <= 0) return 0;
+  if (B < 1 || B > 128 || S < 1 || max_in < 0 || N2 < 1)
+    return (int)cudaErrorInvalidValue;
+  auto args = [&](auto launcher) {
+    return launcher((const int4*)node_eq, (const int*)node_len,
+                    (const int*)band_nodes, (const int8_t*)band_in,
+                    (const int8_t*)band_level, (const int*)seed_shift,
+                    (const int4*)req, (const int*)rows, N2, F, B, S, max_in,
+                    n_levels, (int*)best_score, (int*)best_slot,
+                    (int*)best_col, (int8_t*)best_in, (cudaStream_t)stream);
+  };
+  // wide bands (escalation, dense graphs) hold up to ~10 KB a fragment
+  const cudaError_t err = B <= 32 ? args(launch<16>) : args(launch<8>);
+  return (int)err;
+}
+
+extern "C" int frag_core_thread_launch(const void* slot_eq, const void* slot_len,
                                 const void* band_in, const void* band_level,
                                 const void* req, const void* frag_len,
                                 const void* seed_base, int F, int B, int S,
@@ -309,9 +795,9 @@ extern "C" int frag_core_launch(const void* slot_eq, const void* slot_len,
                     (int8_t*)best_in, (cudaStream_t)stream);
   };
   cudaError_t err;
-  if (B <= 32) err = args(launch<32>);
-  else if (B <= 64) err = args(launch<64>);
-  else err = args(launch<128>);
+  if (B <= 32) err = args(launch_thread<32>);
+  else if (B <= 64) err = args(launch_thread<64>);
+  else err = args(launch_thread<128>);
   return (int)err;
 }
 

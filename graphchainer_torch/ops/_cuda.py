@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("frag_core.cu", "polish_core.cu", "polish_walk.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -35,8 +35,9 @@ build_seconds = None        # wall time of the build that produced the
                             # loaded library (0.0 when it was already built)
 
 _count_lock = threading.Lock()
-_launches = {"frag_core": 0, "polish_core": 0, "polish_walk": 0,
-             "polish_core_serial": 0, "polish_walk_serial": 0}
+_launches = {"frag_core": 0, "frag_core_thread": 0, "polish_core": 0,
+             "polish_walk": 0, "polish_core_serial": 0,
+             "polish_walk_serial": 0}
 
 
 def count_launch(name: str) -> None:
@@ -87,6 +88,19 @@ def _make(out: str) -> None:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stderr}")
+    with open(library_path() + ".log", "w") as fh:
+        for s, log in zip(SOURCES, logs):
+            fh.write(f"== {s}\n{log}")
+
+
+def ptxas_log() -> str:
+    """nvcc's output of the build of the loaded library: per kernel,
+    ptxas' registers, stack frame and spill bytes ('' if not built here)."""
+    try:
+        with open(library_path() + ".log") as fh:
+            return fh.read()
+    except OSError:
+        return ""
 
 
 def lib() -> ctypes.CDLL:
@@ -103,7 +117,9 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(so)
         P, I = ctypes.c_void_p, ctypes.c_int
         L.frag_core_launch.restype = I
-        L.frag_core_launch.argtypes = [P] * 7 + [I] * 5 + [P] * 4 + [P]
+        L.frag_core_launch.argtypes = [P] * 8 + [I] * 6 + [P] * 4 + [P]
+        L.frag_core_thread_launch.restype = I
+        L.frag_core_thread_launch.argtypes = [P] * 7 + [I] * 5 + [P] * 4 + [P]
         for fn in (L.polish_core_launch, L.polish_core_serial_launch):
             fn.restype = I
             fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
@@ -130,15 +146,26 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_int32(name: str, t, shape=None):
-    """Check a kernel argument: CUDA, int32, contiguous, given shape."""
+def require_cuda(name: str, t, shape=None, dtype=None):
+    """Check a kernel argument: its dtype (int32 unless given), shape and
+    contiguity, then that it lies on a CUDA device."""
+    require_cuda_all([(name, t, shape, dtype)])
+
+
+def require_cuda_all(specs):
+    """require_cuda over (name, tensor, shape, dtype) specs: every dtype,
+    shape and contiguity first, then every device."""
     import torch
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
+    for name, t, shape, dtype in specs:
+        dtype = torch.int32 if dtype is None else dtype
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    for name, t, _, _ in specs:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got "
+                             f"{t.device}")

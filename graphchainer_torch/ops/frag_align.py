@@ -2,11 +2,12 @@
 
 Port of graphchainer_tpu/ops/frag_align.py: the lane-major core
 `_frag_core_t` (fresh windows: no carried state, no state or X-cell
-outputs) as plain torch, and the `align_fragments_tl` front end that
-gathers each band slot's Eq planes and length from the resident node
-tables, applies the seed trim and hands the core to
-ops/frag_kernel.frag_core, which launches the CUDA kernel on a CUDA
-tensor and runs `_frag_core_t` on a CPU tensor.
+outputs) as plain torch, `lane_major`, which gathers each band slot's Eq
+planes and length from the resident node tables and applies the seed
+trim, and the `align_fragments_tl` front end, which hands the
+fragment-major batch to ops/frag_kernel.frag_core: on a CUDA tensor the
+kernel does the gather itself, on a CPU tensor lane_major +
+`_frag_core_t` run.
 
 The band is a fixed set of B node slots around the seed, in topological
 levels; each 32-row read slice advances every slot of a level together,
@@ -22,7 +23,7 @@ import torch
 
 from graphchainer_torch.ops.myers import (MASK32, ONES, W, _ABOVE,
                                           advance_word, popcount32,
-                                          source_word)
+                                          source_word, u32)
 
 BIG = 1 << 28
 
@@ -259,8 +260,9 @@ def lane_major(node_eq, node_len, band_nodes, band_in, seed_shift, req,
                frag_len, band_level):
     """The core's lane-major inputs from fragment-major batch tensors:
     each slot's Eq planes and length gathered from the node tables, slot
-    0 trimmed by the seed shift.  Returns the first seven arguments of
-    `_frag_core_t` (int64 words)."""
+    0 trimmed by the seed shift.  Words may come as int64 or as int32 bit
+    patterns.  Returns the first seven arguments of `_frag_core_t` (int64
+    words)."""
     F, B = band_nodes.shape
     N2 = node_eq.shape[0]
     i64 = torch.int64
@@ -276,7 +278,7 @@ def lane_major(node_eq, node_len, band_nodes, band_in, seed_shift, req,
             slot_len.t().contiguous(),
             band_in.to(i64).permute(2, 1, 0).contiguous(),
             band_level.to(i64).t().contiguous(),
-            req.to(i64).permute(1, 2, 0).contiguous(),
+            u32(req).permute(1, 2, 0).contiguous(),
             frag_len.to(i64)[None, :],
             torch.zeros((1, F), dtype=i64, device=ids.device))
 
@@ -292,13 +294,14 @@ def align_fragments_tl(node_eq, node_len, band_nodes, band_in, seed_shift,
     band_nodes: (F, B) slot node ids into the tables, -1 = pad
     band_in:    (F, B, max_in) in-edge slot ids, -1 = none
     seed_shift: (F,) columns trimmed from slot 0's start
-    req:        (F, S, 4) read row planes per slice (int64 words)
+    req:        (F, S, 4) read row planes per slice (32-bit words)
     frag_len:   (F,) fragment rows;  band_level: (F, B), -1 = pad
     n_levels:   level-loop trip count (> max level)
 
-    All tensors on one device; the core runs as the CUDA kernel on a CUDA
-    device and as `_frag_core_t` on the CPU."""
+    All tensors on one device; on a CUDA device they come in the host
+    types of frag_kernel.frag_core_cuda and the CUDA kernel runs, on the
+    CPU lane_major + `_frag_core_t`."""
     from graphchainer_torch.ops.frag_kernel import frag_core
-    return frag_core(*lane_major(node_eq, node_len, band_nodes, band_in,
-                                 seed_shift, req, frag_len, band_level),
-                     S=n_slices, max_in=max_in, n_levels=n_levels)
+    return frag_core(node_eq, node_len, band_nodes, band_in, band_level,
+                     seed_shift, req, frag_len, S=n_slices, max_in=max_in,
+                     n_levels=n_levels)

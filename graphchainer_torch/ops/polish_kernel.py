@@ -66,7 +66,7 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int,
     entry = _entry(bw, entry)
     _, RW, R = planes_t.shape
     P = path_t.shape[0]
-    chk = _cuda.require_cuda_int32
+    chk = _cuda.require_cuda
     chk("planes_t", planes_t, (4, RW, R))
     chk("path_t", path_t, (P, R))
     chk("read_len", read_len, (R,))
@@ -135,7 +135,7 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
     P, _, R = dvp.shape
     RW = planes_t.shape[1]
     warp = entry == "warp"
-    chk = _cuda.require_cuda_int32
+    chk = _cuda.require_cuda
     for name, t in (("dump_vp", dvp), ("dump_vn", dvn), ("dump_sb", dsb)):
         if tuple(t.shape) != (P, bw, R):
             raise ValueError(f"{name}: expected shape {(P, bw, R)}, got "

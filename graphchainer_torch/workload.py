@@ -8,7 +8,8 @@ bench.py:165-200, so this package does not import bench.py (which pulls
 in jax).
 
 polish_hard_pairs makes the (read, path) pairs that the polish kernels
-must survive, for the CPU tests (small) and the smoke run (full size).
+must survive, for the CPU tests (small) and the smoke run (full size);
+frag_hard_batch the fragment batch that the fragment DP must survive.
 """
 from __future__ import annotations
 
@@ -76,6 +77,82 @@ def bench_workload(graph_bp: int = 60_000, n_reads: int = 960,
     reads = simulate_reads(path_seq, n_reads, read_len, seed=11,
                            error_rate=0.10, len_std=read_len // 10)
     return g, mpc, index, path_seq, reads, build_s
+
+
+def frag_hard_batch(seed: int, F: int = 256, B: int = 8, max_in: int = 4,
+                    S: int = 3):
+    """A fragment batch, fragment-major in the band build's host types,
+    with the cases the fragment DP must get right:
+      - a length-0 seed slot (the seed shift equals the seed's length,
+        32 included, where the word shift wraps to 0);
+      - fragments that end at row 1, 31, 32, 33, 63, 64, 65 and 96 (the
+        edges of slices 0, 1 and 2, as far as S reaches) and at random
+        rows;
+      - slots of 32 columns and longer, and of 1;
+      - slots with max_in in-edges, in-edges from pad slots and from
+        beyond B;
+      - pad slots between live ones;
+      - every 16th fragment an in-edge from the same or a higher level,
+        which band_build never makes.
+    Levels follow band_build (0 without kept in-edges, else one more than
+    the highest).  Returns (node_eq (N2, 4) uint32, node_len (N2,) int32,
+    band_nodes (F, B) int32, band_in (F, B, max_in) int8, band_level
+    (F, B) int8, seed_shift (F,) int32, req (F, S, 4) uint32, rows (F,)
+    int32)."""
+    rng = np.random.default_rng(seed)
+    N2 = 64
+    node_len = rng.integers(1, 33, N2).astype(np.int32)
+    node_len[:8] = 32
+    node_len[8:10] = (33, 40)
+    node_len[10:12] = 1
+    node_eq = np.zeros((N2, 4), np.uint32)
+    for v in range(N2):
+        for c in range(min(int(node_len[v]), 32)):
+            node_eq[v, rng.integers(0, 4)] |= np.uint32(1) << np.uint32(c)
+
+    band_nodes = np.full((F, B), -1, np.int32)
+    band_in = np.full((F, B, max_in), -1, np.int8)
+    band_level = np.full((F, B), -1, np.int8)
+    seed_shift = np.zeros(F, np.int32)
+    edges = [r for r in (1, 31, 32, 33, 63, 64, 65, 96) if r <= 32 * S]
+    rows = np.where(np.arange(F) < 2 * len(edges),
+                    np.resize(np.array(edges), F),
+                    rng.integers(1, 32 * S + 1, F)).astype(np.int32)
+    for f in range(F):
+        live = [0] + [b for b in range(1, B) if rng.random() < 0.7]
+        for b in live:
+            band_nodes[f, b] = rng.integers(0, N2)
+        trim = rng.integers(0, node_len[band_nodes[f, 0]] + 1)
+        if f % 5 == 0:
+            trim = 0                      # length-0 seed slot
+        seed_shift[f] = node_len[band_nodes[f, 0]] - trim
+        for b in live[1:]:
+            n_in = max_in if f % 3 == 0 else int(rng.integers(0, max_in + 1))
+            earlier = [u for u in live if u < b]
+            pads = [u for u in range(B) if u not in live]
+            for e in range(n_in):
+                r = rng.random()
+                if r < 0.8 or (r < 0.9 and not pads):
+                    band_in[f, b, e] = rng.choice(earlier)
+                elif r < 0.9:
+                    band_in[f, b, e] = rng.choice(pads)
+                else:
+                    band_in[f, b, e] = rng.integers(min(B, 127), 128)
+        for b in live:
+            lv = 0
+            for u in band_in[f, b]:
+                if 0 <= u < b and band_level[f, u] >= 0:
+                    lv = max(lv, int(band_level[f, u]) + 1)
+            band_level[f, b] = lv
+        if f % 16 == 1 and len(live) > 2:  # an in-edge from the same or a
+            b = live[1]                    # higher level
+            band_in[f, b, 0] = live[-1] if f % 32 == 1 else b
+    req = np.zeros((F, S, 4), np.uint32)
+    for f in range(F):
+        for r in range(int(rows[f])):
+            req[f, r // 32, rng.integers(0, 4)] |= np.uint32(1) << np.uint32(r % 32)
+    return (node_eq, node_len, band_nodes, band_in, band_level, seed_shift,
+            req, rows)
 
 
 def polish_hard_pairs(seed: int, n_plain: int, length: int, indel: int = 200):

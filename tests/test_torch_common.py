@@ -111,6 +111,24 @@ def padded_batch(B):
     return model, bnc, bi, ss, req, rows, S, bl
 
 
+def host_args(B, padded=True):
+    """frag_kernel.frag_core's arguments for frag_batch(B) on the CPU,
+    fragment-major in the band build's host types (int32 ids, int8
+    in-edges and levels, uint32 words as int32 bits), with the bands
+    padded to B or at the batch's own width B_eff."""
+    if padded:
+        model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
+    else:
+        model, _, _, _, bnc, bi, ss, req, rows, S, bl = frag_batch(B)
+    gx = model.gx
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+    args = (t(gx.node_eq_cat.view(np.int32)), t(gx.node_len_cat), t(bnc),
+            t(bi), t(bl), t(ss), t(req.view(np.int32)), t(rows))
+    return args, dict(S=S, max_in=4, n_levels=level_bucket(bl, bnc.shape[1]))
+
+
 def lane_major_inputs(B):
     """The transposed core inputs, built exactly as align_fragments_tl
     builds them (as in tests/test_pallas_frag.py)."""

@@ -16,9 +16,8 @@ from graphchainer_tpu.ops import frag_align as JF
 from graphchainer_torch.align import anchors as TA
 from graphchainer_torch.ops import frag_align as TF
 
-from test_torch_common import (frag_batch, lane_major_inputs,
-                                     padded_batch, port_graph,
-                               slice_case, t64)
+from test_torch_common import (frag_batch, host_args, lane_major_inputs,
+                               padded_batch, port_graph, slice_case, t64)
 
 NAMES = ("best_score", "best_slot", "best_col", "best_in")
 
@@ -64,6 +63,29 @@ def test_align_fragments_tl_matches_jax(B):
         g = getattr(got, name).numpy()
         assert ref[name].shape == g.shape, name
         np.testing.assert_array_equal(ref[name], g, err_msg=name)
+
+
+@pytest.mark.parametrize("B", [16, 32])
+def test_align_fragments_tl_host_types_match_jax(B):
+    """The host-typed arguments the CUDA route takes (int32 ids, int8
+    in-edges and levels, uint32 words as int32 bits), on the CPU route:
+    equal to the JAX package, padded to B, and at the batch's own width
+    B_eff equal to its first B_eff slots, the pad slots holding IN_NONE."""
+    ref = jax_tl(B)
+    for padded in (True, False):
+        args, kw = host_args(B, padded)
+        eq, ln, bn, bi, bl, ss, req, rows = args
+        got = TF.align_fragments_tl(eq, ln, bn, bi, ss, req, rows, kw["S"],
+                                    kw["max_in"], bl, kw["n_levels"])
+        b_eff = bn.shape[1]
+        assert (b_eff == B) == padded and b_eff % 8 == 0
+        for name in NAMES[:3]:
+            np.testing.assert_array_equal(ref[name],
+                                          getattr(got, name).numpy(),
+                                          err_msg=name)
+        np.testing.assert_array_equal(ref["best_in"][:, :b_eff],
+                                      got.best_in.numpy())
+    assert (ref["best_in"][:, b_eff:] == TF.IN_NONE).all()
 
 
 def test_host_tables_and_bands_match_jax():

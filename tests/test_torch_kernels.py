@@ -14,17 +14,21 @@ from graphchainer_torch.ops import _cuda, frag_align, frag_kernel
 from graphchainer_torch.ops import linear_align, polish_kernel
 from graphchainer_torch.ops.myers import to_i32_bits, u32
 
-from test_torch_common import (cuda_device, lane_major_inputs,  # noqa
-                                     mixed_batch, t64)
+from test_torch_common import (cuda_device, host_args,  # noqa
+                               lane_major_inputs, mixed_batch, t64)
 
 
 def test_cpu_tensors_run_plain_versions():
     _cuda.reset_launches()
-    args, kw = lane_major_inputs(16)
-    res = frag_kernel.frag_core(*(t64(a) for a in args), **kw)
-    ref = frag_align._frag_core_t(*(t64(a) for a in args), **kw)
+    args, kw = host_args(16)
+    res = frag_kernel.frag_core(*args, **kw)
+    ref = frag_align._frag_core_t(*(t64(a) for a in lane_major_inputs(16)[0]),
+                                  **kw)
     np.testing.assert_array_equal(res.best_in.numpy(),
                                   ref[3].permute(2, 1, 0).numpy())
+    for got, want in zip(res[:3], ref[:3]):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want[0].numpy())
     planes_t, path_t, rl, pl = (t64(a) for a in mixed_batch())
     dump = polish_kernel.polish_core(planes_t, path_t, rl, pl, 4)
     ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, 4)
@@ -37,8 +41,8 @@ def test_cpu_tensors_run_plain_versions():
     assert torch.equal(walk, ref)
     assert set(_cuda.launches().values()) == {0}
     assert set(_cuda.launches()) == {
-        "frag_core", "polish_core", "polish_walk", "polish_core_serial",
-        "polish_walk_serial"}
+        "frag_core", "frag_core_thread", "polish_core", "polish_walk",
+        "polish_core_serial", "polish_walk_serial"}
 
 
 @pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
@@ -78,10 +82,23 @@ def test_polish_dump_layouts():
 
 
 def test_kernel_calls_refuse_cpu_tensors():
-    args, kw = lane_major_inputs(16)
-    i32 = [to_i32_bits(t64(a)) for a in args]
+    args, kw = host_args(16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        frag_kernel.frag_core_cuda(*i32[:5], i32[5][0], i32[6][0], **kw)
+        frag_kernel.frag_core_cuda(*args, **kw)
+    # wrong dtypes (the int64 words and ids of the CPU route), shapes
+    # and widths are refused before the device is looked at
+    for i, bad, msg in ((0, args[0].long(), "node_eq: expected torch.int32"),
+                        (3, args[3].int(), "band_in: expected torch.int8"),
+                        (4, args[4].long(), "band_level: expected torch.int8"),
+                        (6, args[6][:, :1], r"req: expected shape"),
+                        (7, args[7][1:], r"rows: expected shape")):
+        with pytest.raises(ValueError, match=msg):
+            frag_kernel.frag_core_cuda(*args[:i], bad, *args[i + 1:], **kw)
+    with pytest.raises(ValueError, match="band_in: expected shape"):
+        frag_kernel.frag_core_cuda(*args, **dict(kw, max_in=12))
+    wide = torch.full((args[2].shape[0], 129), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="B=129"):
+        frag_kernel.frag_core_cuda(*args[:2], wide, *args[3:], **kw)
     planes_t, path_t, rl, pl = (to_i32_bits(t64(a)) for a in mixed_batch())
     with pytest.raises(ValueError, match="CUDA tensor"):
         polish_kernel.polish_core_cuda(planes_t, path_t, rl, pl, 4)
@@ -97,25 +114,121 @@ def test_kernel_calls_refuse_cpu_tensors():
                                        1024, 500)
 
 
+def frag_case(case):
+    """The kernel's CUDA-free arguments of one test case: the slice batch
+    at B_eff (as run_fragments launches it), padded to B / max_in, or the
+    hard batch."""
+    if case == "hard":
+        from graphchainer_torch.align.anchors import level_bucket
+        from graphchainer_torch.workload import frag_hard_batch
+        eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(3, F=96)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa
+        return ((t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(bl), t(ss),
+                 t(req.view(np.int32)), t(rows)),
+                dict(S=req.shape[1], max_in=bi.shape[2],
+                     n_levels=level_bucket(bl, bn.shape[1])))
+    if case == "beff":
+        return host_args(32, padded=False)
+    B, max_in = case
+    args, kw = host_args(min(B, 32))
+    bn, bi, bl = args[2], args[3], args[4]
+    F = bn.shape[0]
+    pad = B - bn.shape[1]
+    bn = torch.cat([bn, torch.full((F, pad), -1, dtype=bn.dtype)], 1)
+    bl = torch.cat([bl, torch.full((F, pad), -1, dtype=bl.dtype)], 1)
+    bi = torch.cat([bi, torch.full((F, pad, bi.shape[2]), -1,
+                                   dtype=bi.dtype)], 1)
+    bi = torch.cat([bi, torch.full((F, B, max_in - bi.shape[2]), -1,
+                                   dtype=bi.dtype)], 2)
+    return ((args[0], args[1], bn, bi, bl) + args[5:],
+            dict(kw, max_in=max_in))
+
+
+def test_frag_outputs_come_home_in_one_copy():
+    """frag_kernel's outputs are views of one buffer, which to_numpy
+    copies once (a result of separate tensors still converts), and
+    anchors.upload packs arrays into one buffer at 16-byte offsets."""
+    from graphchainer_torch.align.anchors import upload
+    F, B, S = 5, 3, 2
+    buf = torch.arange(3 * F + -(-F * B * S // 4), dtype=torch.int32)
+    res = frag_kernel._result_views(buf, F, B, S)
+    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res)
+    assert res.best_in.shape == (F, B, S) and res.best_in.dtype == torch.int8
+    host = frag_kernel.to_numpy(res)
+    np.testing.assert_array_equal(host.best_slot, np.arange(F, 2 * F))
+    np.testing.assert_array_equal(host.best_in.reshape(-1),
+                                  buf[3 * F:].numpy().view(np.int8)[:F * B * S])
+    sep = frag_kernel.to_numpy(frag_align.FragResult(*(x.clone() for x in res)))
+    for a, b in zip(sep, host):
+        np.testing.assert_array_equal(a, b)
+    arrays = [np.arange(7, dtype=np.int32), np.arange(-3, 6, dtype=np.int8)
+              .reshape(3, 3), np.arange(8, dtype=np.int32).reshape(2, 4)]
+    views = upload(arrays, "cpu")
+    assert len({v.untyped_storage().data_ptr() for v in views}) == 1
+    for a, v in zip(arrays, views):
+        assert v.data_ptr() % 16 == 0
+        np.testing.assert_array_equal(a, v.numpy())
+
+
+def test_frag_hard_batch_has_its_cases():
+    """workload.frag_hard_batch holds every case it names."""
+    from graphchainer_torch.workload import frag_hard_batch
+    eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(3)
+    F, B = bn.shape
+    max_in = bi.shape[2]
+    assert (ln[bn[:, 0]] == ss).any() and (ss == 32).any()
+    assert {1, 31, 32, 33, 63, 64, 65, 96} <= set(rows.tolist())
+    assert (ln[bn[bn >= 0]] >= 32).any() and (ln[bn[bn >= 0]] == 1).any()
+    assert ((bi >= 0).sum(2) == max_in).any() and (bi >= B).any()
+    assert ((bn[:, :-1] < 0) & (bn[:, 1:] >= 0)).any()
+    f, b, e = np.nonzero((bi >= 0) & (bi < B))
+    u = bi[f, b, e].astype(np.int64)
+    assert (bn[f, u] < 0).any()                       # from a pad slot
+    assert (bl[f, u] >= bl[f, b]).any()               # not from below
+    # words: row bits only below the fragment's end, Eq bits only below
+    # the node's length
+    rr = np.arange(32 * req.shape[1]).reshape(req.shape[1], 32)
+    assert not (((req[..., None] >> (rr % 32)[:, None, :].astype(np.uint32))
+                 & 1).astype(bool)
+                & (rr[None, :, None, :] >= rows[:, None, None, None])).any()
+    assert ((eq >> np.minimum(ln, 31)[:, None].astype(np.uint32))
+            [ln < 32] == 0).all()
+
+
+def test_ptxas_report_reads_nvcc_output():
+    """chip_smoke's reading of nvcc -Xptxas -v: registers, stack frame and
+    spills per instantiation of the kernel asked for, and no other."""
+    import chip_smoke
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_core_kernelILi16EEEvPK4int4' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_core_kernelILi16EEEvPK4int4
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 115 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123frag_core_thread_kernelILi32EEEvPKj' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123frag_core_thread_kernelILi32EEEvPKj
+    2048 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 77 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_core_kernelILi8EEEvPK4int4' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_core_kernelILi8EEEvPK4int4
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+"""
+    assert chip_smoke.ptxas_report(log, "frag_core_kernel") == {
+        "frag_core_kernel<16>": (115, 0, 0, 0),
+        "frag_core_kernel<8>": (255, 16, 8, 4)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,max_in", [(16, 4), (32, 4), (96, 12)])
-def test_frag_kernel_matches_plain(cuda_device, B, max_in):
-    if max_in == 4:
-        args, kw = lane_major_inputs(B)
-    else:
-        args, kw = lane_major_inputs(16)
-        pad = B - args[0].shape[1]
-        padw = lambda a, v: np.pad(  # noqa: E731
-            a, [(0, 0)] * (a.ndim - 2) + [(0, pad), (0, 0)],
-            constant_values=v)
-        bi = np.concatenate([args[2], np.full((max_in - 4,) + args[2].shape[1:],
-                                              -1, np.int32)])
-        args = (padw(args[0], 0), padw(args[1], 0), padw(bi, -1),
-                padw(args[3], -1)) + args[4:]
-        kw = dict(kw, max_in=max_in)
-    dev_args = [t64(a).to(cuda_device) for a in args]
+@pytest.mark.parametrize("case", ["beff", (16, 4), (32, 4), (96, 12),
+                                  "hard"], ids=str)
+def test_frag_kernel_matches_plain(cuda_device, case):
+    """The kernel against its plain version (lane_major + _frag_core_t) on
+    the same host-typed tensors on the card."""
+    args, kw = frag_case(case)
+    dev_args = [a.contiguous().to(cuda_device) for a in args]
     got = frag_kernel.frag_core(*dev_args, **kw)
-    ref = frag_align._frag_core_t(*dev_args, **kw)
+    ref = frag_align._frag_core_t(*frag_align.lane_major(
+        *dev_args[:4], dev_args[5], dev_args[6], dev_args[7], dev_args[4]),
+        **kw)
     torch.cuda.synchronize()
     for g, r in zip(got[:3], ref[:3]):
         assert torch.equal(g.long().cpu(), r[0].cpu())
