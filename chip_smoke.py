@@ -13,8 +13,7 @@ Phases (any failure raises and exits non-zero before the result line):
      (the band at its own width B_eff, host-typed inputs), the same batch
      padded to B=32, the escalation shape B=96 / max_in=12 on 16 reads and
      the hard batches of workload.frag_hard_batch (B=8 / S=3 and B=128 /
-     max_in=12); frag_core's two designs timed in turns at the main shape
-     and at B=96, and nvcc's report of its registers and spills (any
+     max_in=12), and nvcc's report of its registers and spills (any
      stack frame or spill fails); both entries (warp per read, thread
      per read) of polish_core and of polish_walk
      (score + backtrace over the fill's dump) at bw 8, 16 and 32 on 32
@@ -185,35 +184,6 @@ def check_frag(label, args, kw, reps=50):
                 plain_ms=plain_ms, bound=bnd)
 
 
-def time_frag_designs(label, args, kw, reps=50):
-    """The warp-pair design against the thread-per-fragment design on one
-    batch, in turns (new, old, old, new), `reps` launches a turn.  Both
-    must give the same outputs.  Returns {"new": [ms, ms], "old": [...]}:
-    the old design's time includes nothing but its launch (its lane-major
-    inputs are built before)."""
-    import torch
-    from graphchainer_torch.ops import frag_align, frag_kernel
-    from graphchainer_torch.ops.myers import to_i32_bits
-    eq, ln, bn, bi, bl, ss, req, rows = args
-    lm = [to_i32_bits(a).contiguous() for a in
-          frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl)]
-    fns = {"new": lambda: frag_kernel.frag_core_cuda(*args, **kw),
-           "old": lambda: frag_kernel.frag_core_thread_cuda(*lm, **kw)}
-    outs = {k: fn() for k, fn in fns.items()}
-    torch.cuda.synchronize()
-    for a, b in zip(outs["new"], outs["old"]):
-        if not torch.equal(a, b):
-            raise AssertionError(f"frag_core ({label}): the two designs "
-                                 "differ")
-    turns = {"new": [], "old": []}
-    for k in ("new", "old", "old", "new"):
-        turns[k].append(cuda_ms(fns[k], reps=reps))
-    log(f"frag_core ({label}) {frag_shape(args, kw)}: warp-pair design "
-        f"{turns['new'][0]:.4f} / {turns['new'][1]:.4f} ms, thread per "
-        f"fragment {turns['old'][0]:.4f} / {turns['old'][1]:.4f} ms")
-    return turns
-
-
 def ptxas_report(log_text: str, kernel: str):
     """{instantiation: (registers, stack frame, spill stores, spill loads)}
     of one kernel from nvcc -Xptxas -v output."""
@@ -245,8 +215,7 @@ def check_frag_all(model, reads, dev):
     """frag_core on the main path's batch as run_fragments hands it over
     (128 reads, the band at its own width B_eff), the same batch padded to
     B=32, the escalation shape (16 reads, B=96 padded, max_in=12) and the
-    hard batches; the two designs timed in turns at the main shape and at
-    B=96; nvcc's report of the kernel's registers and spills."""
+    hard batches; nvcc's report of the kernel's registers and spills."""
     from graphchainer_torch.ops import _cuda
     cfg = model.cfg
     main = frag_inputs(model, reads[:128], cfg.band_slots, cfg.max_in,
@@ -265,8 +234,6 @@ def check_frag_all(model, reads, dev):
         check_frag("hard batch, wide", *frag_hard_inputs(
             dev, 4, F=64, B=128, max_in=12, S=2)),
     ]
-    designs = {"main": time_frag_designs("main path", *main[:2]),
-               "escalation": time_frag_designs("escalation", *wide[:2])}
     ptx = ptxas_report(_cuda.ptxas_log(), "frag_core_kernel")
     log(f"ptxas, frag_core_kernel<fragments a block> (registers, stack "
         f"frame, spill stores, spill loads bytes): {ptx}")
@@ -276,7 +243,7 @@ def check_frag_all(model, reads, dev):
         if stack or st or ld:
             raise AssertionError(f"{name}: {stack} bytes stack frame, "
                                  f"{st} / {ld} bytes spilled")
-    return dict(cases=cases, designs=designs, ptxas=ptx)
+    return dict(cases=cases, ptxas=ptx)
 
 
 def polish_inputs(pairs, dev):
@@ -758,14 +725,7 @@ def main() -> int:
                           for c in frag["cases"]},
               plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
                                 for c in frag["cases"]},
-              turns_ms={k: [round(x, 4) for x in v["new"]]
-                        for k, v in frag["designs"].items()},
               ptxas={k: list(v) for k, v in frag["ptxas"].items()}),
-        entry("frag_core_thread", frag_src, frag_tpu, 0,
-              sum(frag["designs"]["main"]["old"]) / 2, fm["plain_ms"],
-              fm["bound"], shape=fm["shape"],
-              turns_ms={k: [round(x, 4) for x in v["old"]]
-                        for k, v in frag["designs"].items()}),
         entry("polish_core", core_src, core_tpu, pol_err,
               timed[8]["polish_core"]["warp"], pol[8][2], b8["polish_core"],
               reads=len(pairs_all), ms_by_bw=by_bw("polish_core", "warp"),

@@ -110,28 +110,3 @@ def to_numpy(res: _fa.FragResult) -> _fa.FragResult:
 
 
 _NP_DTYPE = {torch.int32: "int32", torch.int8: "int8"}
-
-
-def frag_core_thread_cuda(slot_eq_t, slot_len_t, band_in_t, band_level_t,
-                          req_t, frag_len, seed_base, *, S: int, max_in: int,
-                          n_levels: int) -> _fa.FragResult:
-    """The thread-per-fragment design on the lane-major inputs of
-    _frag_core_t as contiguous int32 CUDA tensors (words as bit
-    patterns), for the timing comparison."""
-    args = [slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
-            frag_len.reshape(-1), seed_base.reshape(-1)]
-    for a in args:
-        _cuda.require_cuda("frag_core_thread", a, a.shape)
-    _, B, F = args[0].shape
-    dev = args[0].device
-    out = _fa.FragResult(
-        best_score=torch.empty(F, dtype=torch.int32, device=dev),
-        best_slot=torch.empty(F, dtype=torch.int32, device=dev),
-        best_col=torch.empty(F, dtype=torch.int32, device=dev),
-        best_in=torch.empty((F, B, S), dtype=torch.int8, device=dev))
-    rc = _cuda.lib().frag_core_thread_launch(
-        *(a.data_ptr() for a in args), F, B, S, max_in, n_levels,
-        *(x.data_ptr() for x in out), _cuda.stream_ptr(args[0]))
-    _cuda.check(rc, "frag_core_thread")
-    _cuda.count_launch("frag_core_thread")
-    return out

@@ -41,8 +41,8 @@ def test_cpu_tensors_run_plain_versions():
     assert torch.equal(walk, ref)
     assert set(_cuda.launches().values()) == {0}
     assert set(_cuda.launches()) == {
-        "frag_core", "frag_core_thread", "polish_core", "polish_walk",
-        "polish_core_serial", "polish_walk_serial"}
+        "frag_core", "polish_core", "polish_walk", "polish_core_serial",
+        "polish_walk_serial"}
 
 
 @pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
@@ -203,8 +203,8 @@ def test_ptxas_report_reads_nvcc_output():
 ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_core_kernelILi16EEEvPK4int4
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 115 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123frag_core_thread_kernelILi32EEEvPKj' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_123frag_core_thread_kernelILi32EEEvPKj
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123polish_core_warp_kernelILi8EEEvPKj' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123polish_core_warp_kernelILi8EEEvPKj
     2048 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 77 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_core_kernelILi8EEEvPK4int4' for 'sm_90a'
