@@ -129,10 +129,14 @@ def host_args(B, padded=True):
     return args, dict(S=S, max_in=4, n_levels=level_bucket(bl, bnc.shape[1]))
 
 
-def lane_major_inputs(B):
+def lane_major_inputs(B, padded=True):
     """The transposed core inputs, built exactly as align_fragments_tl
-    builds them (as in tests/test_pallas_frag.py)."""
-    model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
+    builds them (as in tests/test_pallas_frag.py), with the bands padded
+    to B or at the batch's own width B_eff."""
+    if padded:
+        model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
+    else:
+        model, _, _, _, bnc, bi, ss, req, rows, S, bl = frag_batch(B)
     gx = model.gx
     N2 = gx.node_eq_cat.shape[0]
     ids = bnc.astype(np.int64)

@@ -52,11 +52,12 @@ def test_frag_core_t_matches_jax(B):
 
 @pytest.mark.parametrize("B", [16, 32])
 def test_align_fragments_tl_matches_jax(B):
-    model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
-    eq, ln = model.gx.device_tables("cpu")
-    got = TF.align_fragments_tl(eq, ln, t64(bnc), t64(bi), t64(ss),
-                                t64(req), t64(rows), S, 4, t64(bl),
-                                JA.level_bucket(bl, bnc.shape[1]))
+    """The band arrays in the host types the CUDA route takes (int32 ids,
+    int8 in-edges and levels, uint32 words as int32 bits), on the CPU
+    route."""
+    (eq, ln, bn, bi, bl, ss, req, rows), kw = host_args(B)
+    got = TF.align_fragments_tl(eq, ln, bn, bi, ss, req, rows, kw["S"],
+                                kw["max_in"], bl, kw["n_levels"])
     assert got.best_in.dtype == torch.int8
     ref = jax_tl(B)
     for name in NAMES:
@@ -65,27 +66,24 @@ def test_align_fragments_tl_matches_jax(B):
         np.testing.assert_array_equal(ref[name], g, err_msg=name)
 
 
-@pytest.mark.parametrize("B", [16, 32])
-def test_align_fragments_tl_host_types_match_jax(B):
-    """The host-typed arguments the CUDA route takes (int32 ids, int8
-    in-edges and levels, uint32 words as int32 bits), on the CPU route:
-    equal to the JAX package, padded to B, and at the batch's own width
-    B_eff equal to its first B_eff slots, the pad slots holding IN_NONE."""
-    ref = jax_tl(B)
-    for padded in (True, False):
-        args, kw = host_args(B, padded)
-        eq, ln, bn, bi, bl, ss, req, rows = args
-        got = TF.align_fragments_tl(eq, ln, bn, bi, ss, req, rows, kw["S"],
-                                    kw["max_in"], bl, kw["n_levels"])
-        b_eff = bn.shape[1]
-        assert (b_eff == B) == padded and b_eff % 8 == 0
+def test_align_fragments_tl_unpadded_matches_jax():
+    """At the batch's own width B_eff (as run_fragments launches it) the
+    result equals the JAX package's at B = 16 and 32 on their first B_eff
+    slots, and their pad slots hold IN_NONE."""
+    (eq, ln, bn, bi, bl, ss, req, rows), kw = host_args(32, padded=False)
+    b_eff = bn.shape[1]
+    assert b_eff == 8
+    got = TF.align_fragments_tl(eq, ln, bn, bi, ss, req, rows, kw["S"],
+                                kw["max_in"], bl, kw["n_levels"])
+    for B in (16, 32):
+        ref = jax_tl(B)
         for name in NAMES[:3]:
             np.testing.assert_array_equal(ref[name],
                                           getattr(got, name).numpy(),
                                           err_msg=name)
         np.testing.assert_array_equal(ref["best_in"][:, :b_eff],
                                       got.best_in.numpy())
-    assert (ref["best_in"][:, b_eff:] == TF.IN_NONE).all()
+        assert (ref["best_in"][:, b_eff:] == TF.IN_NONE).all()
 
 
 def test_host_tables_and_bands_match_jax():

@@ -20,10 +20,10 @@ from test_torch_common import (cuda_device, host_args,  # noqa
 
 def test_cpu_tensors_run_plain_versions():
     _cuda.reset_launches()
-    args, kw = host_args(16)
+    args, kw = host_args(32, padded=False)
     res = frag_kernel.frag_core(*args, **kw)
-    ref = frag_align._frag_core_t(*(t64(a) for a in lane_major_inputs(16)[0]),
-                                  **kw)
+    ref = frag_align._frag_core_t(
+        *(t64(a) for a in lane_major_inputs(32, padded=False)[0]), **kw)
     np.testing.assert_array_equal(res.best_in.numpy(),
                                   ref[3].permute(2, 1, 0).numpy())
     for got, want in zip(res[:3], ref[:3]):
@@ -173,7 +173,7 @@ def test_frag_outputs_come_home_in_one_copy():
 def test_frag_hard_batch_has_its_cases():
     """workload.frag_hard_batch holds every case it names."""
     from graphchainer_torch.workload import frag_hard_batch
-    eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(3)
+    eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(3, F=96)
     F, B = bn.shape
     max_in = bi.shape[2]
     assert (ln[bn[:, 0]] == ss).any() and (ss == 32).any()
