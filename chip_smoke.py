@@ -22,15 +22,26 @@ Phases (any failure raises and exits non-zero before the result line):
      mixes such reads, empty ones and long indels with ordinary reads,
      once under an ops_cap that long walks overflow; then both entries of
      both polish kernels timed in turns on a 128-read batch, with the
-     bound of each kernel reckoned from that batch;
+     bound of each kernel reckoned from that batch; and the carried entry
+     of frag_core (GA mode's windows: a carried state in, the state and
+     the best X cell out) on GA windows of the bench workload, fresh and
+     carried, as launched and padded to B=48 and B=96, and on the hard
+     batch with a random carry and per-slot trims, every output exact;
   3. the main path: bench.py's workload (960 reads of ~3 kbp at 10% error
      on the synthetic 60 kbp graph) through ChainerModel.align_batch on
      cuda, one warm pass and one timed pass; frag_core and the warp
      entries of both polish kernels must have launched in the timed pass;
      accuracy bounds; and 8 reads run again on the CPU (the plain
-     versions) must give the same alignments;
+     versions) must give the same alignments, and so must 4 reads with
+     every read compared with the GA baseline (the rescue path, through
+     the carried entry);
   4. a real-size graph: 128 reads on a 5 Mbp graph from the same
-     generator.
+     generator;
+  5. GA mode (GraphAlignerModel on cuda) on the golden_cyclic set (36
+     reads lapping cyclic graphs) and the CLC path with its GA rescue at
+     the default config on the golden_badread set (80 reads), each held
+     to the pins of tests/test_cyclic.py and tests/test_parity.py against
+     the reference binary's edit distances (tests/data/golden_*.json).
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 {"ok": true, "device": {...}}.  The line before them is the kernel table.
@@ -52,6 +63,9 @@ ACC_NORM_ED_MAX = 0.095      # mean_norm_edit_distance upper bound (the
 # the kernels the main path must launch; the serial entries of the polish
 # kernels serve band widths it never uses and are timed as the yardstick
 MAIN_PATH_KERNELS = ("frag_core", "polish_core", "polish_walk")
+# the kernels GA mode must launch (its windows run the carried entry)
+GA_PATH_KERNELS = ("frag_core_carried", "polish_core", "polish_walk")
+BIG = 1 << 28
 
 
 _T0 = time.perf_counter()
@@ -139,16 +153,6 @@ def frag_hard_inputs(dev, seed, **shape):
                       n_levels=level_bucket(bl, bn.shape[1]))
 
 
-def frag_plain(args, kw):
-    """The plain version on the same tensors (lane_major + _frag_core_t),
-    as (best_score, best_slot, best_col, best_in (F, B, S))."""
-    from graphchainer_torch.ops import frag_align
-    eq, ln, bn, bi, bl, ss, req, rows = args
-    r = frag_align._frag_core_t(
-        *frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl), **kw)
-    return r[0][0], r[1][0], r[2][0], r[3].permute(2, 1, 0)
-
-
 def frag_shape(args, kw) -> str:
     F, B = args[2].shape
     return f"F={F} B={B} S={kw['S']} max_in={kw['max_in']}"
@@ -165,7 +169,7 @@ def check_frag(label, args, kw, reps=50):
 
     def plain():
         nonlocal ref
-        ref = frag_plain(args, kw)
+        ref = frag_kernel.frag_core_plain(*args, **kw)
     plain_ms = cuda_ms(plain, warm=False)
     for name, a, b in zip(("best_score", "best_slot", "best_col",
                            "best_in"), got, ref):
@@ -186,7 +190,8 @@ def check_frag(label, args, kw, reps=50):
 
 def ptxas_report(log_text: str, kernel: str):
     """{instantiation: (registers, stack frame, spill stores, spill loads)}
-    of one kernel from nvcc -Xptxas -v output."""
+    of one kernel from nvcc -Xptxas -v output; an instantiation's key
+    names its integer and bool template arguments."""
     import re
     out, fn = {}, None
     for line in log_text.splitlines():
@@ -195,10 +200,12 @@ def ptxas_report(log_text: str, kernel: str):
         if m:
             fn = m.group(1)
             continue
-        m = re.search(rf"\d+{kernel}ILi(\d+)E", fn or "")
+        m = re.search(rf"\d+{kernel}ILi(\d+)E(?:Lb([01])E)?", fn or "")
         if not m:
             continue
-        key = f"{kernel}<{m.group(1)}>"
+        key = f"{kernel}<{m.group(1)}" + (
+            "" if m.group(2) is None
+            else f", {('false', 'true')[int(m.group(2))]}") + ">"
         regs, stack, st, ld = out.get(key, (None, None, None, None))
         m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                        r"(\d+) bytes spill loads", line)
@@ -401,21 +408,25 @@ def nbytes(*tensors) -> int:
 
 def frag_bound(args, kw, out):
     """Bytes: every input in its host type read once (the band arrays, the
-    read planes, shifts and rows), the node table's rows that the bands
-    name once each (16 bytes of Eq words and 4 of length), every output
-    written once.  Operations of the live slots only: ~66 per merge
-    candidate (33 adds and mins), ~22 per column advanced, each slice."""
+    read planes, shifts and rows, a carried state), the node table's rows
+    that the bands name once each (16 bytes of Eq words and 4 of length),
+    every output written once.  Operations of the live slots only: ~66
+    per merge candidate (33 adds and mins), ~22 per column advanced (all
+    31 where the state goes out), ~6 per row of an end word scanned for
+    the X cell, each slice."""
     import torch
     from graphchainer_torch.ops import frag_align
     eq, ln, bn, bi, bl, ss, req, rows = args
     slot_len = frag_align.lane_major(eq, ln, bn, bi, ss, req, rows, bl)[1]
     live = int((bl >= 0).sum())
     cands = live + int((bi >= 0).sum())
-    cols = int(slot_len.clamp(min=0).sum())
-    ops = kw["S"] * (66 * cands + 22 * cols)
+    cols = (31 * live if kw.get("want_state")
+            else int(slot_len.clamp(min=0).sum()))
+    x_rows = 32 * live if kw.get("want_xcells") else 0
+    ops = kw["S"] * (66 * cands + 22 * cols + 6 * x_rows)
     n_rows = int(torch.unique(bn[bn >= 0]).numel())
-    b = (nbytes(bn, bi, bl, ss, req, rows) + 20 * n_rows
-         + nbytes(out.best_score, out.best_slot, out.best_col, out.best_in))
+    b = (nbytes(bn, bi, bl, ss, req, rows, *(kw.get("carry") or ()))
+         + 20 * n_rows + nbytes(*(x for x in out if x is not None)))
     return bound(b, ops) + (b, ops)
 
 
@@ -474,6 +485,230 @@ def stitched_pairs(model, reads):
     alns = model.align_batch(reads)
     return [(seq, model.gx.positions_seq(a.positions))
             for (_, seq), a in zip(reads, alns) if not a.failed]
+
+
+# ---------------------------------------------------------------- GA mode
+def ga_windows(model, reads):
+    """The fragment windows of one GraphAlignerModel.align_batch as
+    run_fragments receives them: dicts of the band arrays, read planes,
+    shifts and carried state."""
+    from graphchainer_torch.models import aligner
+    calls, run = [], aligner.run_fragments
+
+    def record(gx, bnc, bi, ss, req, rows, S, max_in, bl, device,
+               carry_in=None, **kw):
+        calls.append(dict(bnc=bnc, bi=bi, ss=ss, req=req, rows=rows, S=S,
+                          max_in=max_in, bl=bl, carry=carry_in))
+        return run(gx, bnc, bi, ss, req, rows, S, max_in, bl, device,
+                   carry_in=carry_in, **kw)
+    aligner.run_fragments = record
+    try:
+        model.align_batch(reads)
+    finally:
+        aligner.run_fragments = run
+    return calls
+
+
+def window_inputs(gx, w, dev, pad_to=None):
+    """frag_core's arguments for a recorded GA window on the card, as
+    run_fragments hands them over (anchors.fragment_inputs), with both
+    extra outputs asked for; the band padded with empty slots to
+    `pad_to`."""
+    import numpy as np
+    from graphchainer_torch.align.anchors import fragment_inputs
+    bnc, bi, bl, ss, carry = w["bnc"], w["bi"], w["bl"], w["ss"], w["carry"]
+    if pad_to:
+        pad = pad_to - bnc.shape[1]
+        bnc = np.pad(bnc, ((0, 0), (0, pad)), constant_values=-1)
+        bi = np.pad(bi, ((0, 0), (0, pad), (0, 0)), constant_values=-1)
+        bl = np.pad(bl, ((0, 0), (0, pad)), constant_values=-1)
+        if ss.ndim == 2:
+            ss = np.pad(ss, ((0, 0), (0, pad)))
+        if carry is not None:
+            carry = (np.pad(carry[0], ((0, 0), (0, pad)),
+                            constant_values=BIG),
+                     np.pad(carry[1], ((0, 0), (0, pad))),
+                     np.pad(carry[2], ((0, 0), (0, pad))))
+    args, kw = fragment_inputs(gx, bnc, bi, ss, w["req"], w["rows"], w["S"],
+                               w["max_in"], bl, dev, carry_in=carry)
+    return args, dict(kw, want_state=True, want_xcells=True)
+
+
+def carried_hard_inputs(dev, seed, **shape):
+    """workload.frag_hard_batch with workload.frag_hard_carry's state and
+    per-slot trims, on the card in the kernel's types."""
+    import numpy as np
+    import torch
+    from graphchainer_torch.align.anchors import level_bucket
+    from graphchainer_torch.workload import frag_hard_batch, frag_hard_carry
+    eq, ln, bn, bi, bl, _, req, rows = frag_hard_batch(seed, **shape)
+    carry, shifts = frag_hard_carry(seed, bn, ln)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(bl), t(shifts),
+            t(req.view(np.int32)), t(rows))
+    return args, dict(S=req.shape[1], max_in=bi.shape[2],
+                      n_levels=level_bucket(bl, bn.shape[1]),
+                      carry=tuple(t(c.view(np.int32)) for c in carry),
+                      want_state=True, want_xcells=True)
+
+
+def check_carried(label, args, kw, reps=50):
+    """The carried entry against the plain version on the same tensors on
+    the card (all ten outputs, max abs diff 0), then both timed."""
+    import torch
+    from graphchainer_torch.ops import frag_kernel
+    got = frag_kernel.frag_core_carried_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref = None
+
+    def plain():
+        nonlocal ref
+        ref = frag_kernel.frag_core_plain(*args, **kw)
+    plain_ms = cuda_ms(plain, warm=False)
+    err = 0
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"frag_core carried entry ({label}): "
+                                 f"{name} missing on one side")
+        e = 0 if a is None else max_abs_diff(a, b)
+        err = max(err, e)
+        if e:
+            raise AssertionError(
+                f"frag_core carried entry ({label}, {frag_shape(args, kw)})"
+                f": {name} differs from the plain version (max abs diff "
+                f"{e})")
+    ms = cuda_ms(lambda: frag_kernel.frag_core_carried_cuda(*args, **kw),
+                 reps=reps)
+    bnd = frag_bound(args, kw, got)
+    carried = kw.get("carry") is not None
+    log(f"frag_core carried entry ({label}) {frag_shape(args, kw)} "
+        f"n_levels={kw['n_levels']} carry={carried}: exact (10 outputs); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.5f} "
+        f"ms by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
+    return dict(label=label, shape=frag_shape(args, kw), ms=ms,
+                plain_ms=plain_ms, bound=bnd, err=err)
+
+
+def check_carried_all(model, reads, dev):
+    """The carried entry on GA windows of the bench workload: the first
+    fresh window batch (want_state + want_xcells) and the first carried
+    one after it, as launched (B_eff), padded to GA mode's B=48 and to a
+    ramp width of 96; and on the hard batch with a random carry and
+    per-slot trims (B=8 / S=3, B=48 / S=2)."""
+    from graphchainer_torch.models.aligner import GraphAlignerModel
+    ga = GraphAlignerModel(model.g, model.index, gx=model.gx, device=dev)
+    wins = ga_windows(ga, reads)
+    fresh = next(w for w in wins if w["carry"] is None)
+    carried = next(w for w in wins if w["carry"] is not None)
+    log(f"GA windows of {len(reads)} bench reads: {len(wins)} launches "
+        f"({sum(w['carry'] is not None for w in wins)} carried)")
+    cases = []
+    for kind, w in (("fresh", fresh), ("carried", carried)):
+        b_eff = w["bnc"].shape[1]
+        cases.append(check_carried(f"GA {kind} window, B_eff={b_eff}",
+                                   *window_inputs(model.gx, w, dev)))
+        for width in (48, 96):
+            cases.append(check_carried(
+                f"GA {kind} window padded to B={width}",
+                *window_inputs(model.gx, w, dev, pad_to=width)))
+    cases.append(check_carried("hard batch, random carry",
+                               *carried_hard_inputs(dev, 3)))
+    cases.append(check_carried("hard batch, random carry, B=48",
+                               *carried_hard_inputs(dev, 4, F=64, B=48,
+                                                    max_in=4, S=2)))
+    return cases
+
+
+def golden(path):
+    import os
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", path)) as fh:
+        return json.load(fh)
+
+
+def score_golden(label, gx, reads, alns, pins, n_min, delta_max):
+    """Per read: aligned, and its edit distance to the alignment's path
+    at or below the reference binary's pinned one; fails below the pins
+    (all aligned, at least n_min at or below, mean delta <= delta_max)."""
+    import numpy as np
+    from graphchainer_torch.workload import nw_edit_distance
+    n_aligned = n_le = 0
+    deltas = []
+    for (name, seq), a in zip(reads, alns):
+        ref_ed = pins["reads"][name]["ref_ed"]
+        if a.failed:
+            continue
+        n_aligned += 1
+        ed = nw_edit_distance(seq, gx.positions_seq(a.positions))
+        n_le += ref_ed is None or ed <= ref_ed
+        if ref_ed is not None:
+            deltas.append(ed - ref_ed)
+    mean = float(np.mean(deltas)) if deltas else float("nan")
+    log(f"{label}: aligned {n_aligned}/{len(reads)}, at or below the "
+        f"reference's edit distance {n_le}/{len(reads)}, mean delta "
+        f"{mean:.3f}")
+    if n_aligned != len(reads) or n_le < n_min or not mean <= delta_max:
+        raise AssertionError(
+            f"{label}: aligned {n_aligned}/{len(reads)}, at-or-better "
+            f"{n_le} (pin >= {n_min}), mean delta {mean} (pin <= "
+            f"{delta_max})")
+    return dict(aligned=n_aligned, at_or_better=n_le, mean_delta=mean)
+
+
+def run_golden(dev):
+    """golden_cyclic through GraphAlignerModel (GA mode) and
+    golden_badread through ChainerModel at the default config (CLC with
+    its GA rescue), both on `dev`, the launch counts of each run set to 0
+    just before it and read just after.  Returns {set: readings}."""
+    import tempfile
+    import torch
+    from graphchainer_torch.graph.mpc import build_mpc
+    from graphchainer_torch.index.minimizer import build_index
+    from graphchainer_torch.models.aligner import GraphAlignerModel
+    from graphchainer_torch.models.chainer import ChainerModel, timers
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import (golden_badread_workload,
+                                             golden_cyclic_workload)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        _, gc, creads = golden_cyclic_workload(td)
+        _, gb, breads = golden_badread_workload(td)
+    for name, g, reads in (("golden_cyclic", gc, creads),
+                           ("golden_badread", gb, breads)):
+        if name == "golden_cyclic":
+            model = GraphAlignerModel(g, build_index(g, k=13, w=8),
+                                      device=dev)
+            need, pins = GA_PATH_KERNELS, (34, 2.0)
+        else:
+            model = ChainerModel(g, build_mpc(g), build_index(g, k=15, w=10),
+                                 device=dev)
+            need, pins = MAIN_PATH_KERNELS, (72, 1.0)
+        model.align_batch(reads[:4])            # warm the device tables
+        torch.cuda.synchronize()
+        timers.reset()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        alns = model.align_batch(reads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _cuda.launches()
+        counters = timers.counters()
+        log(f"{name}: {len(reads)} reads in {wall:.3f} s; launches "
+            f"{json.dumps(launches)}; escalated reads "
+            f"{counters.get('escalated_reads', 0)}, rescued reads "
+            f"{counters.get('rescued_reads', 0)}")
+        if counters.get("rescued_reads", 0):
+            need = need + ("frag_core_carried",)
+        for k in need:
+            if launches[k] <= 0:
+                raise AssertionError(f"{name}: kernel {k} never launched")
+        out[name] = dict(score_golden(name, model.gx, reads, alns,
+                                      golden(f"{name}.json"), *pins),
+                         launches=launches, seconds=wall,
+                         escalated=counters.get("escalated_reads", 0),
+                         rescued=counters.get("rescued_reads", 0))
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -552,7 +787,8 @@ def main() -> int:
     import numpy as np
     from graphchainer_torch import native
     from graphchainer_torch.ops import _cuda
-    from graphchainer_torch.models.chainer import ChainerModel, timers
+    from graphchainer_torch.models.chainer import (ChainerConfig,
+                                                   ChainerModel, timers)
     from graphchainer_torch.workload import bench_workload, polish_hard_pairs
 
     # ---- 1. environment + build
@@ -586,6 +822,7 @@ def main() -> int:
 
     # ---- 2. kernels vs plain versions on the card
     frag = check_frag_all(model, reads, dev)
+    carried_cases = check_carried_all(model, reads[:64], dev)
     n_timed = 32 if quick else 128
     pairs_all = stitched_pairs(model, reads[:n_timed])
     # the main path's batch, whole: the warp entries' grid and the
@@ -641,7 +878,8 @@ def main() -> int:
         f"{n_reads / wall:.2f} reads/s (warm pass {warm_s:.2f} s, "
         f"{workers} workers, batches of {batch}); aligned_fraction "
         f"{aligned_frac:.4f}, mean_norm_edit_distance {norm_ed:.4f}; "
-        f"escalated reads {counters.get('escalated_reads', 0)}")
+        f"escalated reads {counters.get('escalated_reads', 0)}, rescued "
+        f"reads {counters.get('rescued_reads', 0)}")
     log("stage seconds (thread-summed): " + json.dumps(stages))
     log("counters: " + json.dumps(counters))
     log(f"kernel launches in the timed pass: {json.dumps(launches)}")
@@ -665,6 +903,25 @@ def main() -> int:
         raise AssertionError("8-read check: the cuda run differs from the "
                              "plain versions on the cpu")
     log("8-read check: cuda alignments == cpu plain-version alignments")
+    # the rescue path: every read of a batch compared with the GA baseline
+    # (compare_with_baseline), on cuda and with the plain versions
+    both = ChainerConfig(compare_with_baseline=True)
+    _cuda.reset_launches()
+    gpu_alns = ChainerModel(g, mpc, index, both, gx=model.gx,
+                            device="cuda").align_batch(small[:4])
+    torch.cuda.synchronize()
+    rescue_launches = _cuda.launches()
+    cpu_alns = ChainerModel(g, mpc, index, both, gx=model.gx,
+                            device="cpu").align_batch(small[:4])
+    if not same_alignments(gpu_alns, cpu_alns):
+        raise AssertionError("4-read rescue check: the cuda run differs from "
+                             "the plain versions on the cpu")
+    if rescue_launches["frag_core_carried"] <= 0:
+        raise AssertionError("4-read rescue check: the carried entry never "
+                             "launched")
+    log(f"4-read rescue check (compare_with_baseline): cuda alignments == "
+        f"cpu plain-version alignments; launches "
+        f"{json.dumps(rescue_launches)}")
 
     # ---- 4. a real-size graph
     if not quick:
@@ -689,6 +946,9 @@ def main() -> int:
         if ok < 0.99 * 128:
             raise AssertionError(f"big graph: only {ok}/128 reads aligned")
 
+    # ---- 5. GA mode and the rescue on the golden sets
+    gold = run_golden(dev)
+
     # No single PyTorch call computes any of these functions (a banded
     # bit-parallel DP over a graph band, its linear form with a dump, a
     # data-dependent backtrace), so library_ms is null throughout.  The
@@ -696,7 +956,8 @@ def main() -> int:
     # with; plain_ms is the plain version's one run on the same batch.
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **more):
         return dict({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": more.pop("launches", launches[name]),
                      "max_abs_err": err, "ms": round(ms, 4),
                      "plain_ms": round(plain_ms, 4),
                      "bound_ms": round(bnd[0], 6), "bound_by": bnd[1],
@@ -712,6 +973,8 @@ def main() -> int:
     frag_src = "graphchainer_torch/csrc/frag_core.cu"
     frag_tpu = "graphchainer_tpu/ops/pallas_frag.py:278"
     fm = frag["cases"][0]
+    cm = next(c for c in carried_cases
+              if c["label"] == "GA carried window padded to B=48")
     core_src = "graphchainer_torch/csrc/polish_core.cu"
     walk_src = "graphchainer_torch/csrc/polish_walk.cu"
     core_tpu = "graphchainer_tpu/ops/pallas_polish2.py:182"
@@ -726,6 +989,28 @@ def main() -> int:
               plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
                                 for c in frag["cases"]},
               ptxas={k: list(v) for k, v in frag["ptxas"].items()}),
+        entry("frag_core_carried", frag_src,
+              "graphchainer_tpu/ops/frag_align.py:595", cm["err"], cm["ms"],
+              cm["plain_ms"], cm["bound"],
+              shape=cm["shape"] + " (GA mode's carried windows of the bench "
+              "workload, padded to AlignerConfig.band_slots)",
+              launches=gold["golden_cyclic"]["launches"]["frag_core_carried"],
+              launches_by_path={
+                  "bench workload (CLC, rescue)": launches[
+                      "frag_core_carried"],
+                  "4 bench reads, every read compared with the baseline":
+                      rescue_launches["frag_core_carried"],
+                  "golden_cyclic (GA mode)": gold["golden_cyclic"][
+                      "launches"]["frag_core_carried"],
+                  "golden_badread (CLC, rescue)": gold["golden_badread"][
+                      "launches"]["frag_core_carried"]},
+              ms_by_case={c["label"]: round(c["ms"], 4)
+                          for c in carried_cases},
+              plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
+                                for c in carried_cases},
+              bound_ms_by_case={c["label"]: round(c["bound"][0], 6)
+                                for c in carried_cases},
+              on_main_path=True),
         entry("polish_core", core_src, core_tpu, pol_err,
               timed[8]["polish_core"]["warp"], pol[8][2], b8["polish_core"],
               reads=len(pairs_all), ms_by_bw=by_bw("polish_core", "warp"),

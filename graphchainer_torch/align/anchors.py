@@ -1,10 +1,12 @@
-"""Fragment jobs, bands and the fragment DP run (CLC fragment stage).
+"""Fragment jobs, bands and the fragment DP run (the CLC fragment stage
+and GA mode's extension windows).
 
 JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
-(GraphTensors, assemble_batch_cols, pack_row_planes, level_bucket,
-_warn_truncated; JobCols lives in native.py) plus `run_fragments`, which
-runs ops/frag_kernel.frag_core over a whole batch on the model's device:
-the node tables stay resident there, the band arrays go up in their host
+(GraphTensors, assemble_batch_cols, FragJob, assemble_batch, CarryJob,
+assemble_carry_batch, pack_row_planes, level_bucket, _warn_truncated;
+JobCols lives in native.py) plus `run_fragments`, which runs
+ops/frag_kernel.frag_core over a whole batch on the model's device: the
+node tables stay resident there, the band arrays go up in their host
 types (`fragment_inputs`).
 
 Each fragment with a seed at read row r0 and graph position (v, o) is two
@@ -17,6 +19,7 @@ from __future__ import annotations
 import sys
 import threading
 from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -221,6 +224,14 @@ def assemble_batch_cols(gx: GraphTensors, jc: JobCols, read_mm_cat:
             seed_shift, req, rows, S, band_level.astype(np.int8))
 
 
+@dataclass
+class FragJob:
+    rmm: np.ndarray      # (rows,) uint8 read-row match masks (bwd: reversed)
+    seed_node: int
+    seed_trim_len: int   # seed slot length after trimming
+    reverse: bool
+
+
 _trunc_warned = False
 
 
@@ -236,6 +247,204 @@ def _warn_truncated(n: int, max_in: int):
               "dense-graph slots (further warnings suppressed)",
               file=sys.stderr)
         _trunc_warned = True
+
+
+def assemble_batch(gx: GraphTensors, jobs: Sequence[FragJob], B: int,
+                   max_in: int = MAX_IN_DEGREE, slack: int = 8):
+    """Build kernel index tensors for a batch of jobs.
+
+    Returns (band_nodes [F,B] int64 ORIGINAL node ids (host use),
+    band_nodes_cat [F,B] int32 ids into the concatenated fwd++rev device
+    tables, band_in [F,B,max_in] int8, seed_shift [F] int32, req,
+    frag_len, n_slices, band_level [F,B] int32)."""
+    g = gx.g
+    if B > 127:
+        raise ValueError(
+            f"band slots B={B} exceeds 127: the CLC band is int8-indexed "
+            "(native backwalks); use -b/-B <= 127 or optimal mode")
+    F = len(jobs)
+    rows = np.array([max(1, len(j.rmm)) for j in jobs], dtype=np.int32)
+    S = int(max(1, -(-int(rows.max()) // W)))
+
+    # band selection, forward and backward seeds in separate native calls
+    band_nodes = np.full((F, B), -1, dtype=np.int64)
+    band_in = np.full((F, B, max_in), -1, dtype=np.int64)
+    band_level = np.full((F, B), -1, dtype=np.int64)
+    for rev in (False, True):
+        sel = [i for i, j in enumerate(jobs) if j.reverse == rev]
+        if not sel:
+            continue
+        seeds = np.array([jobs[i].seed_node for i in sel], dtype=np.int64)
+        slens = np.array([jobs[i].seed_trim_len for i in sel],
+                         dtype=np.int64)
+        max_bp = int(rows[sel].max()) + slack
+        ptr, idx = (gx.in_ptr, gx.in_idx) if rev else (gx.out_ptr, gx.out_idx)
+        bn, bi, bl, trunc = native.band_build(g.n_nodes, ptr, idx,
+                                              gx.node_len64, seeds, slens,
+                                              B, max_bp, max_in, rev,
+                                              by_dist=g.cyclic)
+        if trunc:
+            _warn_truncated(trunc, max_in)
+        band_nodes[sel] = bn
+        band_in[sel] = bi
+        band_level[sel] = bl
+
+    # adaptive band width: bands rarely fill all B slots (a 35bp fragment
+    # spans ~10 split nodes); trimming to the batch max (bucketed to
+    # multiples of 8) cuts host->device transfer and kernel work.  Safe:
+    # in-band in-edges always reference earlier slots.
+    used = int((band_nodes >= 0).sum(axis=1).max()) if F else 1
+    B_eff = min(B, max(8, -(-used // 8) * 8))
+    if B_eff < B:
+        band_nodes = band_nodes[:, :B_eff]
+        band_in = band_in[:, :B_eff]
+        band_level = band_level[:, :B_eff]
+
+    # ids into the concatenated device tables: reversed nodes offset by +N
+    is_rev = np.array([j.reverse for j in jobs], dtype=bool)
+    band_nodes_cat = np.where(
+        band_nodes >= 0,
+        band_nodes + np.where(is_rev, g.n_nodes, 0)[:, None],
+        -1).astype(np.int32)
+
+    # seed trimming: drop (len - trim_len) columns from the slot-0 start
+    trim_len = np.array([j.seed_trim_len for j in jobs], dtype=np.int64)
+    seed_len = g.node_len[np.clip(band_nodes[:, 0], 0,
+                                  g.n_nodes - 1)].astype(np.int64)
+    seed_shift = (seed_len - trim_len).astype(np.int32)
+
+    # read-row match planes, vectorized across the whole batch
+    mm_pad = np.zeros((F, S * W), dtype=np.uint8)
+    for i, j in enumerate(jobs):
+        mm_pad[i, :len(j.rmm)] = j.rmm[:S * W]
+    req = pack_row_planes(mm_pad).reshape(F, S, 4)
+
+    return (band_nodes, band_nodes_cat, band_in.astype(np.int8),
+            seed_shift, req, rows, S, band_level.astype(np.int8))
+
+
+@dataclass
+class CarryJob:
+    """A continued extension window: the band is re-grown from every
+    still-plausible slot of the previous window's band, and the previous
+    boundary state carries over (full-band carry — re-design of the
+    reference's slice-to-slice band seeding,
+    src/GraphAlignerBitvectorBanded.h:253-406)."""
+    rmm: np.ndarray          # window read rows (bwd: reversed)
+    reverse: bool
+    old_nodes: np.ndarray    # (B,) previous band node ids (-1 pad)
+    old_ssb: np.ndarray      # (B,) carried boundary scores
+    old_hp: np.ndarray       # (B,) carried horizontal +1 bits
+    old_hn: np.ndarray       # (B,) carried horizontal -1 bits
+    src_mask: np.ndarray     # (B,) bool: slots that re-seed the band
+    old_shift: np.ndarray = None   # (B,) per-slot seed trims (column
+                                   # alignment of carried hp/hn bits)
+
+
+def assemble_carry_batch(gx: GraphTensors, jobs: Sequence["CarryJob"],
+                         B: int, max_in: int = MAX_IN_DEGREE,
+                         slack: int = 8):
+    """Band + carried-state tensors for a batch of continued windows.
+
+    Returns (band_nodes [F,B] int64, band_nodes_cat [F,B] int32,
+    band_in [F,B,max_in] int8, band_level [F,B] int32,
+    carry (ssb, hp, hn) each [F,B], slot_map [F,B] int32 new slot -> old
+    slot (-1 = fresh), shifts [F,B] int32, req, rows, S)."""
+    g = gx.g
+    if B > 127:
+        raise ValueError("carry bands are int8-indexed; B <= 127")
+    F = len(jobs)
+    rows = np.array([max(1, len(j.rmm)) for j in jobs], dtype=np.int32)
+    S = int(max(1, -(-int(rows.max()) // W)))
+
+    band_nodes = np.full((F, B), -1, dtype=np.int64)
+    band_in = np.full((F, B, max_in), -1, dtype=np.int64)
+    band_level = np.full((F, B), -1, dtype=np.int64)
+    for rev in (False, True):
+        sel = [i for i, j in enumerate(jobs) if j.reverse == rev]
+        if not sel:
+            continue
+        src_off = [0]
+        src_nodes = []
+        for i in sel:
+            j = jobs[i]
+            srcs = j.old_nodes[j.src_mask & (j.old_nodes >= 0)]
+            src_nodes.append(srcs[:B])
+            src_off.append(src_off[-1] + len(src_nodes[-1]))
+        # distances count from source-node STARTS, but the carried
+        # boundary cell can sit at a source node's last column — extend
+        # the reach by one full split node so the window's true path
+        # cannot run off the band end
+        max_bp = int(rows[sel].max()) + slack + W
+        ptr, idx = (gx.in_ptr, gx.in_idx) if rev else (gx.out_ptr,
+                                                      gx.out_idx)
+        bn, bi, bl, trunc = native.band_build_multi(
+            g.n_nodes, ptr, idx, gx.node_len64,
+            np.array(src_off, dtype=np.int64),
+            np.concatenate(src_nodes) if src_nodes else
+            np.zeros(0, np.int64), B, max_bp, max_in, rev,
+            by_dist=g.cyclic)
+        if trunc:
+            _warn_truncated(trunc, max_in)
+        band_nodes[sel] = bn
+        band_in[sel] = bi
+        band_level[sel] = bl
+
+    # adaptive band width (see assemble_batch)
+    used = int((band_nodes >= 0).sum(axis=1).max()) if F else 1
+    B_eff = min(B, max(8, -(-used // 8) * 8))
+    if B_eff < B:
+        band_nodes = band_nodes[:, :B_eff]
+        band_in = band_in[:, :B_eff]
+        band_level = band_level[:, :B_eff]
+        B = B_eff
+
+    is_rev = np.array([j.reverse for j in jobs], dtype=bool)
+    band_nodes_cat = np.where(
+        band_nodes >= 0,
+        band_nodes + np.where(is_rev, g.n_nodes, 0)[:, None],
+        -1).astype(np.int32)
+
+    # map new slots onto old slots by node id (both bands are sorted in
+    # traversal-topo order: ascending for fwd, descending for rev)
+    BIG = frag_align.BIG
+    slot_map = np.full((F, B), -1, dtype=np.int32)
+    ssb = np.full((F, B), BIG, dtype=np.int32)
+    hp = np.zeros((F, B), dtype=np.uint32)
+    hn = np.zeros((F, B), dtype=np.uint32)
+    shifts = np.zeros((F, B), dtype=np.int32)
+    for i, j in enumerate(jobs):
+        old_valid = j.old_nodes >= 0
+        old_nodes = j.old_nodes[old_valid]
+        old_idx = np.nonzero(old_valid)[0]
+        # sort old nodes by id for the searchsorted match (fwd bands are
+        # already ascending on DAGs, but cyclic by_dist bands are not)
+        order = np.argsort(old_nodes)
+        srt = old_nodes[order]
+        new_valid = band_nodes[i] >= 0
+        nn = band_nodes[i][new_valid]
+        pos = np.searchsorted(srt, nn)
+        ok = (pos < len(srt)) & (srt[np.clip(pos, 0, max(len(srt) - 1, 0))]
+                                 == nn)
+        mapped = np.full(len(nn), -1, dtype=np.int64)
+        mapped[ok] = old_idx[order[pos[ok]]]
+        slots = np.nonzero(new_valid)[0]
+        m_ok = slots[ok]
+        slot_map[i, m_ok] = mapped[ok]
+        ssb[i, m_ok] = j.old_ssb[mapped[ok]]
+        hp[i, m_ok] = j.old_hp[mapped[ok]]
+        hn[i, m_ok] = j.old_hn[mapped[ok]]
+        if j.old_shift is not None:
+            shifts[i, m_ok] = j.old_shift[mapped[ok]]
+
+    mm_pad = np.zeros((F, S * W), dtype=np.uint8)
+    for i, j in enumerate(jobs):
+        mm_pad[i, :len(j.rmm)] = j.rmm[:S * W]
+    req = pack_row_planes(mm_pad).reshape(F, S, 4)
+
+    return (band_nodes, band_nodes_cat, band_in.astype(np.int8),
+            band_level.astype(np.int8), (ssb, hp, hn), slot_map, shifts,
+            req, rows, S)
 
 
 def pack_row_planes(mm: np.ndarray) -> np.ndarray:
@@ -306,28 +515,49 @@ def pad_rows_code0(req: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return out
 
 
+def drop_self_edges(band_in: np.ndarray) -> np.ndarray:
+    """band_in without in-edges of a slot to itself: the 2-bit format
+    stores "none" as the slot's own index, so the reference reads such an
+    edge as none."""
+    own = band_in == np.arange(band_in.shape[1])[None, :, None]
+    return np.where(own, -1, band_in).astype(band_in.dtype) \
+        if own.any() else band_in
+
+
 def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
                     band_in: np.ndarray, seed_shift: np.ndarray,
                     req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
-                    band_level: np.ndarray, device):
+                    band_level: np.ndarray, device, carry_in=None):
     """The arguments of ops/frag_kernel.frag_core for a batch on
     `device`: the resident node tables, then the band arrays as the band
-    build made them (int32 ids, int8 in-edges and levels, int32 shifts,
-    uint32 planes as int32 bits, int32 rows), with the 2-bit format's row
-    padding where the reference would use it.  The band arrays go up in
+    build made them (int32 ids, int8 in-edges and levels, int32 shifts
+    (F,) or (F, B), uint32 planes as int32 bits, int32 rows), with the
+    2-bit format's row padding and in-edge decoding where the reference
+    would use that format, and the carried state (ssb int32, hp / hn
+    uint32 as int32 bits) in the keyword `carry`.  The arrays go up in
     one copy.  Returns (args, keyword args)."""
     dev_eq, dev_len = gx.device_tables(device)
     B = band_nodes_cat.shape[1]
     n_levels = level_bucket(band_level, B)
     if code0_padding(band_nodes_cat, band_in, req, rows, max_in):
         req = pad_rows_code0(req, rows)
-    req32 = np.ascontiguousarray(req, dtype=np.uint32).view(np.int32)
-    band = upload([np.ascontiguousarray(a, dtype=t) for a, t in (
-        (band_nodes_cat, np.int32), (band_in, np.int8),
-        (band_level, np.int8), (seed_shift, np.int32), (req32, np.int32),
-        (rows, np.int32))], dev_eq.device)
-    return (dev_eq, dev_len) + tuple(band), dict(S=S, max_in=max_in,
-                                                 n_levels=n_levels)
+        band_in = drop_self_edges(band_in)
+    i32 = np.int32
+
+    def bits(a):
+        return np.ascontiguousarray(a, dtype=np.uint32).view(i32)
+    arrays = [(band_nodes_cat, i32), (band_in, np.int8),
+              (band_level, np.int8), (seed_shift, i32), (bits(req), i32),
+              (rows, i32)]
+    if carry_in is not None:
+        arrays += [(carry_in[0], i32), (bits(carry_in[1]), i32),
+                   (bits(carry_in[2]), i32)]
+    band = upload([np.ascontiguousarray(a, dtype=t) for a, t in arrays],
+                  dev_eq.device)
+    kw = dict(S=S, max_in=max_in, n_levels=n_levels)
+    if carry_in is not None:
+        kw["carry"] = tuple(band[6:])
+    return (dev_eq, dev_len) + tuple(band[:6]), kw
 
 
 _TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int32): torch.int32}
@@ -352,10 +582,24 @@ def upload(arrays, device):
 def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
                   band_in: np.ndarray, seed_shift: np.ndarray,
                   req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
-                  band_level: np.ndarray, device) -> frag_align.FragResult:
+                  band_level: np.ndarray, device,
+                  carry_in: Optional[tuple] = None,
+                  want_state: bool = False,
+                  want_xcells: bool = False) -> frag_align.FragResult:
     """The fragment DP over a whole batch on `device` (one call: no
     chunking, wire packing or band cache).  Returns a numpy FragResult
-    whose best_in is int8 (F, B, S)."""
+    whose best_in is int8 (F, B, S).
+
+    seed_shift: (F,) trims slot 0 (fresh windows), (F, B) every slot
+                (carried windows)
+    carry_in:   (ssb, hp, hn) each (F, B) — continue a previous window's
+                DP (its out_ssb / out_hp / out_hn, mapped onto this
+                window's slots)
+    want_state: also return out_ssb / out_hp (uint32) / out_hn (uint32),
+                the carry of the next window
+    want_xcells: also return xbest / xslot / xrow, the best X-score cell"""
     args, kw = fragment_inputs(gx, band_nodes_cat, band_in, seed_shift, req,
-                               rows, S, max_in, band_level, device)
-    return frag_kernel.to_numpy(frag_kernel.frag_core(*args, **kw))
+                               rows, S, max_in, band_level, device,
+                               carry_in=carry_in)
+    return frag_kernel.to_numpy(frag_kernel.frag_core(
+        *args, **kw, want_state=want_state, want_xcells=want_xcells))

@@ -1,12 +1,12 @@
-"""Command-line interface of the PyTorch port (CLC mode).
+"""Command-line interface of the PyTorch port (CLC and GA modes).
 
   python -m graphchainer_torch -g graph.gfa -f reads.fa -a out.gaf \
-      [-t N] [--batch-size N] [--verbose] [--device cuda]
+      [--mode ga] [-t N] [--batch-size N] [--verbose] [--device cuda]
 
-The CLC flags are graphchainer_tpu's.  Flags of modes and outputs that
-are not ported yet (GA and optimal modes, the GA rescue, MEM/file seeds,
-multi-process runs, GAM/JSON and corrected-read outputs) are accepted by
-the parser and rejected with a message that names them.
+The flags are graphchainer_tpu's.  Flags of modes and outputs that are
+not ported yet (optimal mode, seedless DP, MEM/file seeds, multi-process
+runs, corrected-read outputs; GAM/JSON outputs) are accepted by the
+parser and rejected with a message that names them.
 """
 from __future__ import annotations
 
@@ -21,33 +21,31 @@ from graphchainer_torch.pipeline import PipelineParams, align_reads
 
 # (dest, flags, argparse kwargs, value meaning "not set")
 _NOT_PORTED = [
-    ("mode", ("--mode",), dict(choices=["clc", "ga", "optimal"],
-                               default="clc"), "clc"),
-    ("no_colinear_chaining", ("--no-colinear-chaining",),
-     dict(action="store_true"), False),
     ("optimal_alignment", ("--optimal-alignment",),
      dict(action="store_true"), False),
     ("seedless_dp", ("--seedless-DP",), dict(action="store_true"), False),
-    ("global_alignment", ("--global-alignment",),
-     dict(action="store_true"), False),
-    ("compare_baseline", ("--compare-baseline",),
-     dict(action="store_true"), False),
     ("seeds_file", ("--seeds-file",), dict(default=None), None),
     ("seeds_mem_count", ("--seeds-mem-count",), dict(type=int, default=0),
      0),
     ("seeds_mum_count", ("--seeds-mum-count",), dict(type=int, default=0),
      0),
     ("num_processes", ("--num-processes",), dict(type=int, default=1), 1),
-    ("ramp_bandwidth", ("-B", "--ramp-bandwidth"),
-     dict(type=int, default=0), 0),
-    ("x_drop", ("--X-drop",), dict(type=int, default=None), None),
-    ("precise_clipping", ("--precise-clipping",),
-     dict(type=float, default=None), None),
-    ("e_cutoff", ("--E-cutoff",), dict(type=float, default=-1.0), -1.0),
     ("corrected_out", ("--corrected-out",), dict(default=None), None),
     ("corrected_clipped_out", ("--corrected-clipped-out",),
      dict(default=None), None),
 ]
+
+# the alignment selection flags and the method each picks
+_SELECTION = [("all_alignments", "--all-alignments", "All"),
+              ("greedy_length", "--greedy-length", "GreedyLength"),
+              ("greedy_e", "--greedy-E", "GreedyE"),
+              ("greedy_score", "--greedy-score", "GreedyScore"),
+              ("sched_score", "--schedule-score", "ScheduleScore"),
+              ("sched_length", "--schedule-length", "ScheduleLength"),
+              ("sched_e_sum", "--schedule-inverse-E-sum",
+               "ScheduleInverseESum"),
+              ("sched_e_product", "--schedule-inverse-E-product",
+               "ScheduleInverseEProduct")]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="graphchainer-torch",
         description="Long-read to variation-graph aligner with co-linear "
                     "chaining (PyTorch / CUDA port of graphchainer-tpu, "
-                    "CLC mode)")
+                    "CLC and GA modes)")
     m = p.add_argument_group("mandatory")
     m.add_argument("-g", "--graph", required=True,
                    help="input graph (.gfa / .gfa.gz)")
@@ -74,6 +72,19 @@ def build_parser() -> argparse.ArgumentParser:
                      default=constants.DEFAULT_COLINEAR_GAP)
     clc.add_argument("--fast-mode", action="store_true",
                      help="skip the base-level polish alignment")
+    clc.add_argument("--mode", choices=["clc", "ga", "optimal"],
+                     default="clc",
+                     help="clc = co-linear chaining (default); ga = plain "
+                          "whole-read seed-and-extend (GraphAligner-style); "
+                          "optimal is not ported yet")
+    clc.add_argument("--no-colinear-chaining", action="store_true",
+                     help="alias for --mode ga")
+    clc.add_argument("--global-alignment", action="store_true",
+                     help="align the read end to end even where the score "
+                          "is poor (GA mode)")
+    clc.add_argument("--compare-baseline", action="store_true",
+                     help="in clc mode, also run the whole-read baseline on "
+                          "every read and keep the better alignment")
     gen = p.add_argument_group("general")
     gen.add_argument("--device", default="cuda",
                      help="torch device: cuda runs the CUDA kernels, cpu "
@@ -96,9 +107,36 @@ def build_parser() -> argparse.ArgumentParser:
                       default=0.0002)
     ext = p.add_argument_group("extension")
     ext.add_argument("-b", "--bandwidth", type=int, default=None,
-                     help="band slots per fragment (default 32, max 127)")
+                     help="band slots per fragment (default 32 in CLC "
+                          "mode, 48 in GA mode; max 127)")
     ext.add_argument("--polish-band", type=int, default=8,
                      help="polish band in 32-row words (default 8)")
+    ext.add_argument("-B", "--ramp-bandwidth", type=int, default=0,
+                     help="retry failing GA windows once with this wider "
+                          "band before clipping (0 = off)")
+    ext.add_argument("--X-drop", dest="x_drop", type=int, default=None,
+                     help="end the extension when the X-score drops more "
+                          "than arg below its max (GA mode)")
+    ext.add_argument("--precise-clipping", type=float, default=None,
+                     help="identity cutoff between correct and wrong "
+                          "alignment ends (GA mode)")
+    seed.add_argument("--seeds-clustersize", type=int, default=0,
+                      help="discard seed clusters with fewer than arg "
+                           "seeds (GA mode)")
+    seed.add_argument("--seeds-extend-density", type=float, default=-1.0,
+                      help="extend up to about the best (arg * sequence "
+                           "length) seeds; -1 = default policy (GA mode)")
+    seed.add_argument("--try-all-seeds", action="store_true",
+                      help="extend every seed hit (GA mode)")
+    sel = p.add_argument_group("alignment selection")
+    for dest, flag, _ in _SELECTION:
+        sel.add_argument(flag, dest=dest, action="store_true")
+    sel.add_argument("--E-cutoff", dest="e_cutoff", type=float,
+                     default=-1.0,
+                     help="discard alignments with E-value > arg")
+    sel.add_argument("--evalue-legacy-score", action="store_true",
+                     help="use the reference binary's literal alignment "
+                          "score sign for E-values")
     np_ = p.add_argument_group("not ported yet (rejected when set)")
     for dest, flags, kw, _ in _NOT_PORTED:
         np_.add_argument(*flags, dest=dest, **kw)
@@ -108,15 +146,42 @@ def build_parser() -> argparse.ArgumentParser:
 def params_from_args(args) -> PipelineParams:
     unported = [flags[-1] for dest, flags, _, unset in _NOT_PORTED
                 if getattr(args, dest) != unset]
+    if args.mode == "optimal":
+        unported.insert(0, "--mode optimal")
     if unported:
         raise SystemExit("graphchainer-torch: error: not ported to the "
                          "PyTorch package yet: " + ", ".join(unported))
+    mode = "ga" if args.no_colinear_chaining else args.mode
     if args.polish_band not in BAND_WORDS:
         raise SystemExit("graphchainer-torch: error: --polish-band must be "
                          f"one of {BAND_WORDS} (the polish kernel's bands)")
-    if args.bandwidth and not 0 < args.bandwidth <= 127:
-        raise SystemExit("graphchainer-torch: error: -b/--bandwidth must "
-                         "be in [1, 127] (band slots are int8-indexed)")
+    if args.precise_clipping is not None \
+            and not 0.0 < args.precise_clipping < 1.0:
+        raise SystemExit("graphchainer-torch: error: --precise-clipping "
+                         "must be in (0, 1)")
+    if args.x_drop is not None and args.x_drop <= 1:
+        raise SystemExit("graphchainer-torch: error: --X-drop score cutoff "
+                         "must be > 1")
+    if args.ramp_bandwidth and args.bandwidth \
+            and args.ramp_bandwidth <= args.bandwidth:
+        raise SystemExit("graphchainer-torch: error: ramp bandwidth must "
+                         "be higher than default bandwidth")
+    for flag, val in (("-b/--bandwidth", args.bandwidth),
+                      ("-B/--ramp-bandwidth", args.ramp_bandwidth)):
+        if val and not 0 < val <= 127:
+            raise SystemExit(f"graphchainer-torch: error: {flag} must be "
+                             "in [1, 127] (band slots are int8-indexed)")
+    picked = [(flag, m) for dest, flag, m in _SELECTION
+              if getattr(args, dest)]
+    if len(picked) > 1:
+        raise SystemExit("graphchainer-torch: error: only one alignment "
+                         "selection method can be set ("
+                         + ", ".join(f for f, _ in picked) + ")")
+    if args.try_all_seeds and args.seeds_extend_density != -1.0:
+        print("WARNING: --try-all-seeds and --seeds-extend-density are "
+              "both set! --seeds-extend-density will be ignored",
+              file=sys.stderr)
+        args.seeds_extend_density = -1.0
     split_gap = args.colinear_split_gap
     if args.sampling_step is not None:
         split_gap = int(math.ceil(args.sampling_step
@@ -129,6 +194,7 @@ def params_from_args(args) -> PipelineParams:
         band_slots=args.bandwidth or 32,
         polish_band_words=args.polish_band,
         seed_density=args.seeds_minimizer_density,
+        compare_with_baseline=args.compare_baseline,
         fast_mode=args.fast_mode)
     params = PipelineParams(
         graph_file=args.graph, read_files=list(args.reads),
@@ -137,8 +203,18 @@ def params_from_args(args) -> PipelineParams:
         seed_k=args.seeds_minimizer_length,
         seed_w=args.seeds_minimizer_windowsize,
         discard_fraction=args.seeds_minimizer_ignore_frequent,
-        chainer=cfg, cigar_match_mismatch=args.cigar_match_mismatch,
+        chainer=cfg, mode=mode,
+        cigar_match_mismatch=args.cigar_match_mismatch,
         device=args.device, verbose=args.verbose,
+        x_drop=args.x_drop, precise_clipping=args.precise_clipping,
+        ramp_band_slots=args.ramp_bandwidth, bandwidth=args.bandwidth,
+        selection_method=picked[0][1] if picked else "GreedyLength",
+        e_cutoff=args.e_cutoff,
+        evalue_legacy_score=args.evalue_legacy_score,
+        try_all_seeds=args.try_all_seeds,
+        seed_extend_density=args.seeds_extend_density,
+        min_cluster_size=args.seeds_clustersize,
+        global_alignment=args.global_alignment,
         **({"inflight": max(args.threads, 1)}
            if args.threads is not None else {}))
     for out in args.alignments_out:

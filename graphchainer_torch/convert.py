@@ -16,6 +16,7 @@ import numpy as np
 from graphchainer_torch.graph.alignment_graph import AlignmentGraph
 from graphchainer_torch.graph.mpc import MPCIndex
 from graphchainer_torch.index.minimizer import MinimizerIndex
+from graphchainer_torch.models.aligner import AlignerConfig
 from graphchainer_torch.models.chainer import ChainerConfig
 
 
@@ -51,10 +52,10 @@ def from_reference_index(fields: dict) -> MinimizerIndex:
 
 
 def from_reference_config(fields: dict) -> ChainerConfig:
-    """The reference's escalate_threshold=None inherits its
-    rescue_threshold; the port has no such inheritance, so the value is
-    resolved here."""
-    fields = dict(fields)
-    if fields.get("escalate_threshold") is None:
-        fields["escalate_threshold"] = fields["rescue_threshold"]
+    """The port's ChainerConfig; the reference's shard_graph_tables (the
+    component sharding, not ported) is left behind."""
     return _build(ChainerConfig, fields)
+
+
+def from_reference_aligner_config(fields: dict) -> AlignerConfig:
+    return _build(AlignerConfig, fields)

@@ -59,6 +59,26 @@
 // before the level: end words are kept per slice parity, and a slot reads
 // a predecessor of a lower level from its own slice and any other from
 // the slice before (the reference's masked commit).
+//
+// The carried entry (EXT = true, frag_core_carried_launch) runs GA mode's
+// extension windows, which JAX keeps off its Pallas kernel and computes in
+// XLA (frag_align._frag_core_t with carried / want_state / want_xcells):
+// - seed trims per slot (F, B): a carried window keeps the seed node
+//   trimmed wherever it lands;
+// - a carried state (column-0 bottom score and bottom-row horizontal bits
+//   per slot, from the window before): slice 0 then reads it as a later
+//   slice reads the slice before (vertical candidate, hin from the
+//   bottom scores, the carried bits for columns 1..31), with no seed
+//   candidate and no length-0 seed word;
+// - the last slice's state out (BIG / 0 / 0 for slots no level holds);
+//   with it every slot runs all 31 columns, since the bits past a slot's
+//   length go out too;
+// - the best X cell, X = (row + 1) - 5 * score over every slot's end word
+//   and row: the lane that computes a slot's end word scans its rows at
+//   once, and the lanes' bests merge by (X, then the lowest slice, slot,
+//   row), which is the reference's strict-greater scan order whatever the
+//   lanes' timing.
+// Its outputs share the fresh entry's buffer, so one copy brings them home.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -222,20 +242,38 @@ __host__ __device__ inline size_t smem_layout(int FPB, int B, int S,
   return align16(o);
 }
 
-template <int FPB>
+// The carried entry's extra arguments (EXT = true; null or 0 in the fresh
+// entry): seed_shift per slot (F, B) when per_slot, else (F,) for slot 0;
+// a carried state (F, B) each, or null for a fresh window; the last
+// slice's state out (F, B) each, and the best X cell (F,) each, or null.
+struct Ext {
+  const int* carry_ssb;
+  const uint32_t* carry_hp;
+  const uint32_t* carry_hn;
+  int per_slot;
+  int* out_ssb;
+  uint32_t* out_hp;
+  uint32_t* out_hn;
+  int* xbest;
+  int* xslot;
+  int* xrow;
+};
+
+template <int FPB, bool EXT>
 __global__ void __launch_bounds__(2 * FPB)
 frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
                  const int* __restrict__ node_len,        // (N2,)
                  const int* __restrict__ band_nodes,      // (F, B)
                  const int8_t* __restrict__ band_in,      // (F, B, max_in)
                  const int8_t* __restrict__ band_level,   // (F, B)
-                 const int* __restrict__ seed_shift,      // (F,)
+                 const int* __restrict__ seed_shift,      // (F,) or (F, B)
                  const int4* __restrict__ req,            // (F, S, 4)
                  const int* __restrict__ rows,            // (F,)
                  int N2, int F, int B, int S, int max_in, int n_levels,
                  int* __restrict__ best_score, int* __restrict__ best_slot,
                  int* __restrict__ best_col,
-                 int8_t* __restrict__ best_in) {          // (F, B, S)
+                 int8_t* __restrict__ best_in,            // (F, B, S)
+                 const Ext ext) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   size_t off[16];
   smem_layout(FPB, B, S, max_in, off);
@@ -284,7 +322,11 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
     const int4 e = node_eq[idc];
     int len = id >= 0 ? node_len[idc] : 0;
     uint32_t sh = 0;
-    if (b == 0) {
+    if (EXT && ext.per_slot) {
+      const int ss = seed_shift[(size_t)f0 * B + i];
+      sh = (uint32_t)ss & 31u;
+      len -= ss;
+    } else if (b == 0) {
       const int ss = seed_shift[f0 + q];
       sh = (uint32_t)ss & 31u;
       len -= ss;
@@ -334,8 +376,15 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
     }
     sm.kcount[fl] = k;
   }
+  const bool carried = EXT && ext.carry_ssb != nullptr;
   for (int i = t; i < nslot; i += nt) {
     const int q = i / B, b = i - q * B;
+    if (carried) {   // slice 0 continues the carried state
+      const size_t g = (size_t)f0 * B + i;
+      sm.ssb[b * FPB + q] = ext.carry_ssb[g];
+      sm.hp[b * FPB + q] = ext.carry_hp[g];
+      sm.hn[b * FPB + q] = ext.carry_hn[g];
+    }
     const int l = sm.lvl[b * FPB + q];
     if (l < 0 || l >= n_levels) continue;
     for (int e = 0; e < max_in; ++e) {
@@ -360,6 +409,10 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
   for (int q = 0; q < nf; ++q) T = max(T, sm.nsteps[q]);
 
   int fb_sc = BIG, fb_slot = 0, fb_col = 0;   // this lane's best end cell
+  const bool want_x = EXT && ext.xbest != nullptr;
+  // this lane's best X cell: the highest X, then the lowest (slice, slot,
+  // row); X <= -BIG never counts
+  int xb = -BIG, xs = 0, xsl = 0, xr = 0;
   const int fl_rows = live ? rows[f] : 1;
   const int end_slice = floordiv(fl_rows - 1, W);
   const int er = (fl_rows - 1) - end_slice * W;         // floor mod, 0..31
@@ -384,9 +437,11 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
       const uint32_t r0 = (uint32_t)rv.x, r1 = (uint32_t)rv.y;
       const uint32_t r2 = (uint32_t)rv.z, r3 = (uint32_t)rv.w;
       const bool at_end = end_slice == s;
+      // the state of the slice before (or the carried one) exists
+      const bool prev = s > 0 || carried;
       int pssb = BIG;
       uint32_t php = 0, phn = 0;
-      if (s > 0) { pssb = sm.ssb[ib]; php = sm.hp[ib]; phn = sm.hn[ib]; }
+      if (prev) { pssb = sm.ssb[ib]; php = sm.hp[ib]; phn = sm.hn[ib]; }
       const uint32_t eq0 = ((sq0 & 1u) ? r0 : 0u) | ((sq1 & 1u) ? r1 : 0u)
                          | ((sq2 & 1u) ? r2 : 0u) | ((sq3 & 1u) ? r3 : 0u);
 
@@ -394,7 +449,7 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
       bool real = false, inv = false, vinv = false;
       int cbest = IN_NONE;
       int csb_run = BIG;
-      if (s == 0) {
+      if (!prev) {
         if (b == 0) {   // seed injection: the boundary word, one column on
           uint32_t avp = ONES, avn = 0;
           int asb = b0_sb;
@@ -427,7 +482,7 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
         }
         if (usb >= BIG) { inv = true; continue; }
         int hin = 1;
-        if (s > 0 && pssb < BIG) {
+        if (prev && pssb < BIG) {
           const int ubs = usb - __popc(uvp) + __popc(uvn);
           hin = max(-1, min(1, pssb - ubs));
         }
@@ -444,7 +499,7 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
       uint32_t cvp, cvn;
       int csb;
       mg.result(cvp, cvn, csb);
-      if (s == 0 && b == 0 && slen == 0) {   // len-0 seed slot
+      if (!prev && b == 0 && slen == 0) {   // len-0 seed slot
         cvp = ONES; cvn = 0; csb = b0_sb; cbest = IN_SEED;
       }
       const int col0_sb = csb;
@@ -455,11 +510,17 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
       uint32_t wvp = cvp, wvn = cvn;
       int wsb = csb;
       uint32_t hp_acc = 0, hn_acc = 0;
-      // columns past the slot's length feed nothing observable
-      const int ncol = min(slen, W);
-      // slice 0 enters every column with +1 from above
-      const uint32_t hpin = s > 0 ? php : ONES;
-      const uint32_t hnin = s > 0 ? phn : 0u;
+      // columns past the slot's length feed nothing observable but the
+      // boundary bits of the state out, which then run through all 31
+      const bool all_cols = EXT && ext.out_ssb != nullptr;
+      const int ncol = all_cols ? W : min(slen, W);
+      // the end word: column slen - 1 (none past the 32nd column)
+      uint32_t evp_c = 0, evn_c = 0;
+      int esb_c = BIG;
+      if (all_cols && slen <= 1) { evp_c = cvp; evn_c = cvn; esb_c = csb; }
+      // a fresh slice 0 enters every column with +1 from above
+      const uint32_t hpin = prev ? php : ONES;
+      const uint32_t hnin = prev ? phn : 0u;
       for (int c = 1; c < ncol; ++c) {
         const uint32_t eqc = (((sq0 >> c) & 1u) ? r0 : 0u)
                            | (((sq1 >> c) & 1u) ? r1 : 0u)
@@ -470,16 +531,30 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
         wsb += (int)hpo - (int)hno;
         hp_acc |= hpo << c;
         hn_acc |= hno << c;
-        if (at_end) {
+        if (at_end && (!all_cols || c < slen)) {
           const int sr = score_masked(wvp, wvn, wsb, erm);
           if (sr < best_sc) { best_sc = sr; best_cl = c; }
         }
+        if (all_cols && c == slen - 1) { evp_c = wvp; evn_c = wvn; esb_c = wsb; }
       }
-      // the end word: column slen - 1 (none past the 32nd column)
-      uint32_t evp_c = 0, evn_c = 0;
-      int esb_c = BIG;
-      if (slen <= W) { evp_c = wvp; evn_c = wvn; esb_c = wsb; }
+      if (!all_cols && slen <= W) { evp_c = wvp; evn_c = wvn; esb_c = wsb; }
       if (!(active || (b == 0 && slen == 0))) esb_c = BIG;
+      if (want_x && active && esb_c < BIG) {
+        // X = (row + 1) - 5 * score over the end word's rows: the first
+        // best row of the slot, then against the lane's best so far
+        int sr = esb_c - __popc(evp_c) + __popc(evn_c);
+        int sv = -BIG, srow = 0;
+        const int nr = min(W, fl_rows - s * W);
+        for (int r = 0; r < nr; ++r) {
+          sr += (int)((evp_c >> r) & 1u) - (int)((evn_c >> r) & 1u);
+          const int x = s * W + r + 1 - 5 * sr;
+          if (x > sv) { sv = x; srow = r; }
+        }
+        if (sv > xb || (sv == xb && sv > -BIG
+                        && (s < xs || (s == xs && b < xsl)))) {
+          xb = sv; xs = s; xsl = b; xr = srow;
+        }
+      }
 
       const int ie = cur * n + ib;
       sm.evp[ie] = evp_c; sm.evn[ie] = evn_c; sm.esb[ie] = esb_c;
@@ -508,6 +583,35 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
     best_slot[f] = fb_slot;
     best_col[f] = fb_col;
   }
+  if (want_x) {
+    const int o_xb = __shfl_xor_sync(mask, xb, 1);
+    const int o_xs = __shfl_xor_sync(mask, xs, 1);
+    const int o_xsl = __shfl_xor_sync(mask, xsl, 1);
+    const int o_xr = __shfl_xor_sync(mask, xr, 1);
+    if (live && j == 0) {
+      if (o_xb > xb || (o_xb == xb && o_xb > -BIG
+                        && (o_xs < xs || (o_xs == xs && o_xsl < xsl)))) {
+        xb = o_xb; xs = o_xs; xsl = o_xsl; xr = o_xr;
+      }
+      ext.xbest[f] = xb;
+      ext.xslot[f] = xsl;
+      ext.xrow[f] = xb > -BIG ? xs * W + xr : 0;
+    }
+  }
+  if (EXT && ext.out_ssb != nullptr) {
+    // the last slice's state of every slot it processed; BIG / 0 / 0 for
+    // the others, as the reference's per-slice state starts
+    for (int i = t; i < nslot; i += nt) {
+      const int q = i / B, b = i - q * B;
+      const int o = b * FPB + q;
+      const int l = sm.lvl[o];
+      const bool done = l >= 0 && l < n_levels;
+      const size_t g = (size_t)f0 * B + i;
+      ext.out_ssb[g] = done ? sm.ssb[o] : BIG;
+      ext.out_hp[g] = done ? sm.hp[o] : 0u;
+      ext.out_hn[g] = done ? sm.hn[o] : 0u;
+    }
+  }
   const int head = min(run, (16 - mis) & 15);
   const int body = (run - head) >> 4;
   for (int i = t; i < head; i += nt) gout[i] = sm.stage[i];
@@ -517,28 +621,28 @@ frag_core_kernel(const int4* __restrict__ node_eq,        // (N2, 4)
   for (int i = head + (body << 4) + t; i < run; i += nt) gout[i] = sm.stage[i];
 }
 
-template <int FPB>
+template <int FPB, bool EXT>
 cudaError_t launch(const int4* node_eq, const int* node_len,
                    const int* band_nodes, const int8_t* band_in,
                    const int8_t* band_level, const int* seed_shift,
                    const int4* req, const int* rows, int N2, int F, int B,
                    int S, int max_in, int n_levels, int* best_score,
                    int* best_slot, int* best_col, int8_t* best_in,
-                   cudaStream_t stream) {
+                   const Ext& ext, cudaStream_t stream) {
   size_t off[16];
   const size_t bytes = smem_layout(FPB, B, S, max_in, off);
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        frag_core_kernel<FPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        frag_core_kernel<FPB, EXT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (F + FPB - 1) / FPB;
-  frag_core_kernel<FPB><<<blocks, 2 * FPB, bytes, stream>>>(
+  frag_core_kernel<FPB, EXT><<<blocks, 2 * FPB, bytes, stream>>>(
       node_eq, node_len, band_nodes, band_in, band_level, seed_shift, req,
       rows, N2, F, B, S, max_in, n_levels, best_score, best_slot, best_col,
-      best_in);
+      best_in, ext);
   return cudaGetLastError();
 }
 
@@ -555,16 +659,59 @@ extern "C" int frag_core_launch(const void* node_eq, const void* node_len,
   if (F <= 0) return 0;
   if (B < 1 || B > 128 || S < 1 || max_in < 0 || N2 < 1)
     return (int)cudaErrorInvalidValue;
+  const Ext none{};
   auto args = [&](auto launcher) {
     return launcher((const int4*)node_eq, (const int*)node_len,
                     (const int*)band_nodes, (const int8_t*)band_in,
                     (const int8_t*)band_level, (const int*)seed_shift,
                     (const int4*)req, (const int*)rows, N2, F, B, S, max_in,
                     n_levels, (int*)best_score, (int*)best_slot,
-                    (int*)best_col, (int8_t*)best_in, (cudaStream_t)stream);
+                    (int*)best_col, (int8_t*)best_in, none,
+                    (cudaStream_t)stream);
   };
   // wide bands (escalation, dense graphs) hold up to ~10 KB a fragment
-  const cudaError_t err = B <= 32 ? args(launch<16>) : args(launch<8>);
+  const cudaError_t err = B <= 32 ? args(launch<16, false>)
+                                  : args(launch<8, false>);
+  return (int)err;
+}
+
+// The carried entry (GA mode's windows): seed_shift (F, B) when per_slot,
+// else (F,); carry_* null for a fresh window; out_* and x* null when not
+// wanted.  Output pointers in the order of ops/frag_align.FragResult.
+extern "C" int frag_core_carried_launch(
+    const void* node_eq, const void* node_len, const void* band_nodes,
+    const void* band_in, const void* band_level, const void* seed_shift,
+    const void* req, const void* rows, const void* carry_ssb,
+    const void* carry_hp, const void* carry_hn, int N2, int F, int B, int S,
+    int max_in, int n_levels, int per_slot, void* best_score,
+    void* best_slot, void* best_col, void* best_in, void* out_ssb,
+    void* out_hp, void* out_hn, void* xbest, void* xslot, void* xrow,
+    void* stream) {
+  if (F <= 0) return 0;
+  if (B < 1 || B > 128 || S < 1 || max_in < 0 || N2 < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((carry_ssb == nullptr) != (carry_hp == nullptr)
+      || (carry_ssb == nullptr) != (carry_hn == nullptr)
+      || (out_ssb == nullptr) != (out_hp == nullptr)
+      || (out_ssb == nullptr) != (out_hn == nullptr)
+      || (xbest == nullptr) != (xslot == nullptr)
+      || (xbest == nullptr) != (xrow == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Ext ext{(const int*)carry_ssb, (const uint32_t*)carry_hp,
+                (const uint32_t*)carry_hn, per_slot, (int*)out_ssb,
+                (uint32_t*)out_hp, (uint32_t*)out_hn, (int*)xbest,
+                (int*)xslot, (int*)xrow};
+  auto args = [&](auto launcher) {
+    return launcher((const int4*)node_eq, (const int*)node_len,
+                    (const int*)band_nodes, (const int8_t*)band_in,
+                    (const int8_t*)band_level, (const int*)seed_shift,
+                    (const int4*)req, (const int*)rows, N2, F, B, S, max_in,
+                    n_levels, (int*)best_score, (int*)best_slot,
+                    (int*)best_col, (int8_t*)best_in, ext,
+                    (cudaStream_t)stream);
+  };
+  const cudaError_t err = B <= 32 ? args(launch<16, true>)
+                                  : args(launch<8, true>);
   return (int)err;
 }
 

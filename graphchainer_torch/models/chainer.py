@@ -14,10 +14,11 @@ reads:
   8. repair         corridor re-polish of the bubble-arm choices (native)
   9. escalate       reads still above escalate_threshold re-run once with
                     a wider band and in-degree cap
-
-The GA-baseline rescue of the reference (rescue_threshold,
-compare_with_baseline, auto_compare_dense on dense graphs) is not ported:
-align_batch raises NotImplementedError when asked for it.
+ 10. rescue         reads that failed or are still above rescue_threshold
+                    (every read with compare_with_baseline, or with
+                    auto_compare_dense on a dense graph) are aligned again
+                    by the whole-read GA baseline (models/aligner.py), and
+                    the better alignment is kept
 """
 from __future__ import annotations
 
@@ -45,11 +46,8 @@ from graphchainer_torch.utils.seq import match_masks
 
 @dataclass
 class ChainerConfig:
-    """graphchainer_tpu's ChainerConfig with the slice's defaults: no GA
-    rescue (rescue_threshold=0.0, auto_compare_dense=False) and the band
-    escalation triggered explicitly at a normalised edit distance of 0.35
-    (in the reference, escalate_threshold=None inherits rescue_threshold,
-    which would switch escalation off)."""
+    """graphchainer_tpu's ChainerConfig, with its defaults (the component
+    sharding of the graph tables is not ported)."""
     colinear_split_len: int = constants.DEFAULT_COLINEAR_SPLIT_LEN
     colinear_split_gap: int = constants.DEFAULT_COLINEAR_SPLIT_GAP
     colinear_gap: int = constants.DEFAULT_COLINEAR_GAP
@@ -60,13 +58,20 @@ class ChainerConfig:
     max_anchor_error: float = 0.5      # drop anchors with score > err*len
     seeds_per_fragment: int = 2        # try the k rarest seeds per window
     polish_band_words: int = 8         # 256-row polish band
-    compare_with_baseline: bool = False   # GA rescue: not ported
-    rescue_threshold: float = 0.0         # GA rescue: not ported
+    # run the whole-read GA baseline on every read too and keep the
+    # better alignment (reference src/Aligner.cpp:901-920)
+    compare_with_baseline: bool = False
+    # selective rescue: reads that failed, or whose edit distance exceeds
+    # this fraction of their length, are aligned by the GA baseline too
+    rescue_threshold: float = 0.35
     fast_mode: bool = False            # skip the polish (mismatch count)
     escalate_band: int = 96            # wider band of the escalation retry
     escalate_max_in: int = 12
-    escalate_threshold: Optional[float] = 0.35
-    auto_compare_dense: bool = False      # GA rescue: not ported
+    # norm-ED trigger of the escalation retry; None = rescue_threshold
+    escalate_threshold: Optional[float] = None
+    # on a dense graph (more than 2% of nodes above max_in) every read
+    # gets the baseline comparison instead of the threshold rescue
+    auto_compare_dense: bool = True
     bubble_repair: bool = True         # native corridor re-polish
     corridor_band: int = 16
     corridor_passes: int = 1
@@ -116,6 +121,7 @@ class ChainerModel:
         # (PERF.md); host stages of other batches run meanwhile
         self._device_lock = threading.Lock()
         self._escalated = None
+        self._baseline = None
         indeg = np.diff(g.in_ptr)
         self._dense_graph = bool(np.mean(indeg > self.cfg.max_in) > 0.02)
 
@@ -137,14 +143,21 @@ class ChainerModel:
                 self._escalated._device_lock = self._device_lock
             return self._escalated
 
-    def _check_no_rescue(self):
-        cfg = self.cfg
-        if (cfg.rescue_threshold > 0 or cfg.compare_with_baseline
-                or (cfg.auto_compare_dense and self._dense_graph)):
-            raise NotImplementedError(
-                "the GA-baseline rescue (rescue_threshold > 0, "
-                "compare_with_baseline, or auto_compare_dense on a dense "
-                "graph) is not ported to graphchainer_torch yet")
+    def baseline(self):
+        """The whole-read GA model of the rescue (shares the graph
+        tensors, the index and the device lock)."""
+        with self._lock:
+            if self._baseline is None:
+                from graphchainer_torch.models.aligner import (
+                    AlignerConfig, GraphAlignerModel)
+                self._baseline = GraphAlignerModel(
+                    self.g, self.index,
+                    AlignerConfig(
+                        seed_density=self.cfg.seed_density,
+                        polish_band_words=self.cfg.polish_band_words),
+                    gx=self.gx, device=self.device,
+                    device_lock=self._device_lock)
+            return self._baseline
 
     def _fragment_jobs_cols(self, reads: Sequence[Tuple[str, str]]):
         cfg = self.cfg
@@ -156,7 +169,6 @@ class ChainerModel:
     def align_batch(self, reads: Sequence[Tuple[str, str]]
                     ) -> List[ReadAlignment]:
         cfg = self.cfg
-        self._check_no_rescue()
         out = [ReadAlignment(name=n, seq=s, positions=[], ops=None,
                              score=len(s), seq_end=len(s))
                for n, s in reads]
@@ -273,9 +285,10 @@ class ChainerModel:
             if cfg.bubble_repair:
                 self._repair(out, reads, polish_refs)
 
-        esc_thr = cfg.escalate_threshold
-        if (esc_thr is not None and esc_thr > 0
-                and cfg.escalate_band > cfg.band_slots):
+        esc_thr = (cfg.escalate_threshold
+                   if cfg.escalate_threshold is not None
+                   else cfg.rescue_threshold)
+        if cfg.escalate_band > cfg.band_slots and esc_thr > 0:
             # band escalation: re-run still-bad reads through the fragment
             # path with a wider band and in-degree cap
             esc = [ri for ri in range(len(reads))
@@ -293,6 +306,36 @@ class ChainerModel:
                         ealn[bi].n_seeds = max(ealn[bi].n_seeds,
                                                out[ri].n_seeds)
                         out[ri] = ealn[bi]
+
+        if cfg.compare_with_baseline or (cfg.auto_compare_dense
+                                         and self._dense_graph):
+            retry = list(range(len(reads)))
+        elif cfg.rescue_threshold > 0:
+            retry = [ri for ri in range(len(reads))
+                     if out[ri].failed
+                     or out[ri].score > cfg.rescue_threshold
+                     * max(len(reads[ri][1]), 1)]
+        else:
+            retry = []
+        if retry:
+            # keep the better of CLC / whole-read baseline per read
+            # (reference src/Aligner.cpp:901-920: CLC wins only when the
+            # baseline is absent or strictly worse by edit distance)
+            with timers.stage("rescue", len(retry)):
+                ga = self.baseline().align_batch(
+                    [reads[ri] for ri in retry])
+            timers.count("rescued_reads", len(retry))
+            for bi, ri in enumerate(retry):
+                clc_better = ga[bi].failed or (not out[ri].failed
+                                               and ga[bi].score
+                                               > out[ri].score)
+                if not clc_better:
+                    # keep the CLC stage counters: the stats report counts
+                    # seeds/anchors found, not which candidate won
+                    ga[bi].n_seeds = max(ga[bi].n_seeds, out[ri].n_seeds)
+                    ga[bi].n_anchors = out[ri].n_anchors
+                    ga[bi].n_chained = out[ri].n_chained
+                    out[ri] = ga[bi]
         return out
 
     def _repair(self, out, reads, refs):

@@ -84,6 +84,8 @@ def get_lib() -> ctypes.CDLL:
                                     ctypes.c_int64, _I64P, _I64P]
                                    + [ctypes.c_int64] * 5
                                    + [_I64P, _I64P, _I64P])
+        lib.band_build_multi.restype = ctypes.c_int64
+        lib.band_build_multi.argtypes = lib.band_build.argtypes
         _I8P = ctypes.POINTER(ctypes.c_int8)
         lib.join_anchors.restype = ctypes.c_void_p
         lib.join_anchors.argtypes = ([ctypes.c_int64] * 4 + [_I8P]
@@ -250,6 +252,37 @@ def band_build(n: int, ptr: np.ndarray, idx: np.ndarray,
     return (out_nodes.reshape(ns, B),
             out_in.reshape(ns, B, max_in),
             out_level.reshape(ns, B), int(trunc))
+
+
+def band_build_multi(n: int, ptr: np.ndarray, idx: np.ndarray,
+                     node_len: np.ndarray, src_off: np.ndarray,
+                     src_nodes: np.ndarray, B: int, max_bp: int,
+                     max_in: int, descending: bool,
+                     by_dist: bool = False):
+    """Multi-source band build (full-band carry windows): job q's band is
+    grown from src_nodes[src_off[q]:src_off[q+1]] all at distance 0.
+    Returns (nodes [J,B], in_edges [J,B,max_in], levels [J,B],
+    n_truncated), -1 padded."""
+    lib = get_lib()
+    ptr = np.ascontiguousarray(ptr, dtype=np.int64)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    node_len = np.ascontiguousarray(node_len, dtype=np.int64)
+    src_off = np.ascontiguousarray(src_off, dtype=np.int64)
+    src_nodes = np.ascontiguousarray(src_nodes, dtype=np.int64)
+    nj = len(src_off) - 1
+    out_nodes = np.empty(nj * B, dtype=np.int64)
+    out_in = np.empty(nj * B * max_in, dtype=np.int64)
+    out_level = np.empty(nj * B, dtype=np.int64)
+    trunc = lib.band_build_multi(
+        ctypes.c_int64(n), _ptr(ptr), _ptr(idx), _ptr(node_len),
+        ctypes.c_int64(nj), _ptr(src_off), _ptr(src_nodes),
+        ctypes.c_int64(B), ctypes.c_int64(max_bp),
+        ctypes.c_int64(max_in), ctypes.c_int64(int(descending)),
+        ctypes.c_int64(int(by_dist)),
+        _ptr(out_nodes), _ptr(out_in), _ptr(out_level))
+    return (out_nodes.reshape(nj, B),
+            out_in.reshape(nj, B, max_in),
+            out_level.reshape(nj, B), int(trunc))
 
 
 def join_anchors(best_in: np.ndarray, best_slot: np.ndarray,

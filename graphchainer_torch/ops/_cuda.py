@@ -35,8 +35,9 @@ build_seconds = None        # wall time of the build that produced the
                             # loaded library (0.0 when it was already built)
 
 _count_lock = threading.Lock()
-_launches = {"frag_core": 0, "polish_core": 0, "polish_walk": 0,
-             "polish_core_serial": 0, "polish_walk_serial": 0}
+_launches = {"frag_core": 0, "frag_core_carried": 0, "polish_core": 0,
+             "polish_walk": 0, "polish_core_serial": 0,
+             "polish_walk_serial": 0}
 
 
 def count_launch(name: str) -> None:
@@ -117,6 +118,9 @@ def lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L.frag_core_launch.restype = I
         L.frag_core_launch.argtypes = [P] * 8 + [I] * 6 + [P] * 4 + [P]
+        L.frag_core_carried_launch.restype = I
+        L.frag_core_carried_launch.argtypes = ([P] * 11 + [I] * 7
+                                               + [P] * 10 + [P])
         for fn in (L.polish_core_launch, L.polish_core_serial_launch):
             fn.restype = I
             fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]

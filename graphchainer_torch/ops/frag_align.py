@@ -1,13 +1,15 @@
-"""Banded fragment-to-graph DP (the CLC fragment stage) in torch.
+"""Banded fragment-to-graph DP (the CLC fragment stage and GA mode's
+extension windows) in torch.
 
 Port of graphchainer_tpu/ops/frag_align.py: the lane-major core
-`_frag_core_t` (fresh windows: no carried state, no state or X-cell
-outputs) as plain torch, `lane_major`, which gathers each band slot's Eq
-planes and length from the resident node tables and applies the seed
-trim, and the `align_fragments_tl` front end, which hands the
-fragment-major batch to ops/frag_kernel.frag_core: on a CUDA tensor the
-kernel does the gather itself, on a CPU tensor lane_major +
-`_frag_core_t` run.
+`_frag_core_t` as plain torch, with its fresh windows (the CLC path) and
+its carried ones (GA mode: a boundary state carried in from the window
+before, the state of the last slice out, the best X-score cell),
+`lane_major`, which gathers each band slot's Eq planes and length from
+the resident node tables and applies the seed trims, and the
+`align_fragments_tl` front end, which hands the fragment-major batch to
+ops/frag_kernel.frag_core: on a CUDA tensor the kernel does the gather
+itself, on a CPU tensor lane_major + `_frag_core_t` run.
 
 The band is a fixed set of B node slots around the seed, in topological
 levels; each 32-row read slice advances every slot of a level together,
@@ -17,7 +19,7 @@ slot's remaining columns through the Myers recurrence.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,6 +43,16 @@ class FragResult(NamedTuple):
     best_slot: torch.Tensor   # (F,) int32 argmin slot (lowest wins ties)
     best_col: torch.Tensor    # (F,) int32 argmin column within that slot
     best_in: torch.Tensor     # (F, B, S) int8 winning incoming candidate
+    # want_state: the last slice's boundary state per slot, which a
+    # following window on the same band takes as its carry
+    out_ssb: Optional[torch.Tensor] = None  # (F, B) column-0 bottom score
+    out_hp: Optional[torch.Tensor] = None   # (F, B) bottom-row +1 bits
+    out_hn: Optional[torch.Tensor] = None   # (F, B) bottom-row -1 bits
+    # want_xcells: the best X-score cell, X = (row + 1) - 5 * score over
+    # every (slot end word, row); ties go to the lowest (slice, slot, row)
+    xbest: Optional[torch.Tensor] = None    # (F,) its X value
+    xslot: Optional[torch.Tensor] = None    # (F,) its slot
+    xrow: Optional[torch.Tensor] = None     # (F,) its window-local row
 
 
 class _MergeAcc:
@@ -83,9 +95,10 @@ class _MergeAcc:
 
 def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
                  frag_len, seed_base, *, S: int, max_in: int,
-                 n_levels: int):
-    """Lane-major fragment DP, plain torch (fresh windows).  All arrays
-    are (..., F) with fragments last; words are int64 holding 32 bits:
+                 n_levels: int, carried: bool = False, carry=None,
+                 want_state: bool = False, want_xcells: bool = False):
+    """Lane-major fragment DP, plain torch.  All arrays are (..., F) with
+    fragments last; words are int64 holding 32 bits:
 
     slot_eq_t:    (4, B, F) seed-shifted Eq bitplanes per slot
     slot_len_t:   (B, F) effective slot lengths (after the seed trim)
@@ -93,11 +106,14 @@ def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
     band_level_t: (B, F) topo level per slot (-1 pad)
     req_t:        (S, 4, F) read row planes per 32-row slice
     frag_len:     (1, F);  seed_base: (1, F)
+    carry:        (ssb, hp, hn) each (B, F) when carried: slice 0
+                  continues that state (vertical carry and exact boundary
+                  bits, no seed injection)
 
     Returns (best_score (1, F), best_slot (1, F), best_col (1, F),
-    best_in (S, B, F)), all int64 — the values of
-    graphchainer_tpu.ops.frag_align._frag_core_t with carried=False,
-    want_state=False and want_xcells=False."""
+    best_in (S, B, F), [ssb, hp, hn (B, F) when want_state], [xbest,
+    xslot, xrow (1, F) when want_xcells]), all int64 — the values of
+    graphchainer_tpu.ops.frag_align._frag_core_t."""
     _, B, F = slot_eq_t.shape
     dev = slot_eq_t.device
     i64 = torch.int64
@@ -122,9 +138,15 @@ def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
         return torch.full((B, F), v, dtype=i64, device=dev)
 
     evp, evn, esb = full(0), full(0), full(BIG)
-    ssb, hp, hn = full(BIG), full(0), full(0)
+    if carried:     # hp / hn may come as int32 bit patterns
+        ssb, hp, hn = carry[0].to(i64), u32(carry[1]), u32(carry[2])
+    else:
+        ssb, hp, hn = full(BIG), full(0), full(0)
     end_score, end_col = full(BIG), full(0)
     best_in_slices = []
+    xbest = torch.full((1, F), -BIG, dtype=i64, device=dev)
+    xslot = torch.zeros((1, F), dtype=i64, device=dev)
+    xrow = torch.zeros((1, F), dtype=i64, device=dev)
 
     def eq_col(req_s, c):
         bits = (slot_eq_t >> c) & 1                      # (4, B, F)
@@ -138,7 +160,7 @@ def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
     for s in range(S):
         req_s = [req_t[s, b][None] for b in range(4)]   # 4 x (1, F)
         prev_ssb, prev_hp, prev_hn = ssb, hp, hn
-        prev_exists = s > 0
+        prev_exists = s > 0 or carried
         at_end = end_slice == s                          # (1, F)
         n_ssb, n_hp, n_hn = full(BIG), full(0), full(0)
         bin_s = full(IN_NONE)
@@ -244,6 +266,33 @@ def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
         ssb, hp, hn = n_ssb, n_hp, n_hn
         best_in_slices.append(bin_s)
 
+        if want_xcells:
+            # the best X cell of this slice's end words: per slot the
+            # first best row, then the lowest slot, then (below) the
+            # earliest slice, each by strict >
+            ok0 = slot_active & (esb < BIG)
+            xv, xr = full(-BIG), full(0)
+            for r in range(W):
+                m = int(_ABOVE[r])
+                srow = esb - popcount32(evp & m) + popcount32(evn & m)
+                grow = s * W + r
+                x = torch.where(ok0 & (grow < frag_len), grow + 1 - 5 * srow,
+                                -BIG)
+                hit = x > xv
+                xv = torch.where(hit, x, xv)
+                xr = torch.where(hit, grow, xr)
+            sv, sr_ = xv[0][None], xr[0][None]
+            sb_slot = torch.zeros((1, F), dtype=i64, device=dev)
+            for b in range(1, B):
+                hit = xv[b][None] > sv
+                sv = torch.where(hit, xv[b][None], sv)
+                sb_slot = torch.where(hit, b, sb_slot)
+                sr_ = torch.where(hit, xr[b][None], sr_)
+            hit = sv > xbest
+            xbest = torch.where(hit, sv, xbest)
+            xslot = torch.where(hit, sb_slot, xslot)
+            xrow = torch.where(hit, sr_, xrow)
+
     # reduction over slots: strict <, so the lowest slot wins ties
     best_score = end_score[0][None]
     best_slot = torch.zeros((1, F), dtype=i64, device=dev)
@@ -253,14 +302,21 @@ def _frag_core_t(slot_eq_t, slot_len_t, band_in_t, band_level_t, req_t,
         best_score = torch.where(better, end_score[b][None], best_score)
         best_slot = torch.where(better, b, best_slot)
         best_col = torch.where(better, end_col[b][None], best_col)
-    return best_score, best_slot, best_col, torch.stack(best_in_slices, 0)
+    out = [best_score, best_slot, best_col, torch.stack(best_in_slices, 0)]
+    if want_state:
+        out += [ssb, hp, hn]
+    if want_xcells:
+        out += [xbest, xslot, xrow]
+    return tuple(out)
 
 
 def lane_major(node_eq, node_len, band_nodes, band_in, seed_shift, req,
                frag_len, band_level):
     """The core's lane-major inputs from fragment-major batch tensors:
-    each slot's Eq planes and length gathered from the node tables, slot
-    0 trimmed by the seed shift.  Words may come as int64 or as int32 bit
+    each slot's Eq planes and length gathered from the node tables and
+    trimmed by its seed shift: seed_shift (F,) trims slot 0 only (a fresh
+    window), (F, B) every slot (a carried window keeps the seed node
+    trimmed wherever it lands).  Words may come as int64 or as int32 bit
     patterns.  Returns the first seven arguments of `_frag_core_t` (int64
     words)."""
     F, B = band_nodes.shape
@@ -270,8 +326,11 @@ def lane_major(node_eq, node_len, band_nodes, band_in, seed_shift, req,
     idc = ids.clamp(0, N2 - 1)
     slot_eq = node_eq[idc].to(i64) & MASK32                  # (F, B, 4)
     slot_len = torch.where(ids >= 0, node_len[idc].to(i64), 0)
-    shift = torch.zeros((F, B), dtype=i64, device=ids.device)
-    shift[:, 0] = seed_shift.to(i64)
+    if seed_shift.dim() == 2:
+        shift = seed_shift.to(i64)
+    else:
+        shift = torch.zeros((F, B), dtype=i64, device=ids.device)
+        shift[:, 0] = seed_shift.to(i64)
     slot_eq = slot_eq >> (shift & 31)[..., None]
     slot_len = slot_len - shift
     return (slot_eq.permute(2, 1, 0).contiguous(),

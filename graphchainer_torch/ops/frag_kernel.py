@@ -2,46 +2,90 @@
 
 frag_core() takes the fragment-major batch of the band build in its host
 types and returns a FragResult (int32 best_score / best_slot / best_col
-(F,), int8 best_in (F, B, S), the layout native.join_anchors reads).  A
-CPU tensor runs the plain version, frag_align.lane_major +
-frag_align._frag_core_t; a CUDA tensor launches the kernel, which does the
-slot gather and the seed trim itself and replaces the Pallas kernel
-graphchainer_tpu/ops/pallas_frag.py::frag_core_pallas.
+(F,), int8 best_in (F, B, S), the layout native.join_anchors reads; with
+want_state the int32 out_ssb and the bits of out_hp / out_hn (F, B), with
+want_xcells the int32 xbest / xslot / xrow (F,)).  A CPU tensor runs the
+plain version, frag_align.lane_major + frag_align._frag_core_t; a CUDA
+tensor launches the kernel, which does the slot gather and the seed trims
+itself.  Its fresh entry (the CLC fragment stage) replaces the Pallas
+kernel graphchainer_tpu/ops/pallas_frag.py::frag_core_pallas; its carried
+entry (GA mode's windows: per-slot trims, a carried boundary state, the
+state and the best X cell out) replaces the XLA-only variants of the
+same DP that JAX keeps off that kernel (frag_align._frag_core_t with
+carried / want_state / want_xcells, and the F-major align_fragments).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from graphchainer_torch.ops import _cuda
 from graphchainer_torch.ops import frag_align as _fa
+from graphchainer_torch.ops.myers import to_i32_bits
 
 MAX_B = 128       # band slots the kernel takes (band_in is int8)
 
 
 def frag_core(node_eq, node_len, band_nodes, band_in, band_level,
               seed_shift, req, rows, *, S: int, max_in: int,
-              n_levels: int) -> _fa.FragResult:
+              n_levels: int, carry=None, want_state: bool = False,
+              want_xcells: bool = False) -> _fa.FragResult:
     """The fragment DP of F fragments of B band slots.
 
     node_eq (N2, 4) / node_len (N2,): the resident node table;
     band_nodes (F, B) slot node ids into it, -1 = pad; band_in
     (F, B, max_in) in-edge slot ids, -1 = none; band_level (F, B), -1 =
-    pad; seed_shift (F,) columns trimmed from slot 0; req (F, S, 4) read
-    row planes (32-bit words); rows (F,) fragment rows.  On a CUDA device
-    every tensor has the dtype frag_core_cuda names."""
+    pad; seed_shift (F,) columns trimmed from slot 0, or (F, B) from every
+    slot; req (F, S, 4) read row planes (32-bit words); rows (F,)
+    fragment rows; carry (ssb, hp, hn) each (F, B), a previous window's
+    state (hp / hn as 32-bit words).  On a CUDA device every tensor has
+    the dtype frag_core_cuda names; the fresh entry runs when there is no
+    carry, trim per slot or extra output, the carried entry otherwise."""
     if not band_nodes.is_cuda:
-        bs, bslot, bcol, bin_ = _fa._frag_core_t(
-            *_fa.lane_major(node_eq, node_len, band_nodes, band_in,
-                            seed_shift, req, rows, band_level),
-            S=S, max_in=max_in, n_levels=n_levels)
-        return _fa.FragResult(
-            best_score=bs[0].to(torch.int32),
-            best_slot=bslot[0].to(torch.int32),
-            best_col=bcol[0].to(torch.int32),
-            best_in=bin_.permute(2, 1, 0).to(torch.int8).contiguous())
-    return frag_core_cuda(node_eq, node_len, band_nodes, band_in, band_level,
-                          seed_shift, req, rows, S=S, max_in=max_in,
-                          n_levels=n_levels)
+        return frag_core_plain(node_eq, node_len, band_nodes, band_in,
+                               band_level, seed_shift, req, rows, S=S,
+                               max_in=max_in, n_levels=n_levels, carry=carry,
+                               want_state=want_state, want_xcells=want_xcells)
+    if carry is None and seed_shift.dim() == 1 and not (want_state
+                                                        or want_xcells):
+        return frag_core_cuda(node_eq, node_len, band_nodes, band_in,
+                              band_level, seed_shift, req, rows, S=S,
+                              max_in=max_in, n_levels=n_levels)
+    return frag_core_carried_cuda(node_eq, node_len, band_nodes, band_in,
+                                  band_level, seed_shift, req, rows, S=S,
+                                  max_in=max_in, n_levels=n_levels,
+                                  carry=carry, want_state=want_state,
+                                  want_xcells=want_xcells)
+
+
+def frag_core_plain(node_eq, node_len, band_nodes, band_in, band_level,
+                    seed_shift, req, rows, *, S: int, max_in: int,
+                    n_levels: int, carry=None, want_state: bool = False,
+                    want_xcells: bool = False) -> _fa.FragResult:
+    """The plain version (lane_major + _frag_core_t) on tensors of any
+    device, with frag_core's arguments and the kernel's output types."""
+    carried = carry is not None
+    out = _fa._frag_core_t(
+        *_fa.lane_major(node_eq, node_len, band_nodes, band_in, seed_shift,
+                        req, rows, band_level),
+        S=S, max_in=max_in, n_levels=n_levels, carried=carried,
+        carry=(tuple(c.t() for c in carry) if carried else None),
+        want_state=want_state, want_xcells=want_xcells)
+    res = dict(best_score=out[0][0].to(torch.int32),
+               best_slot=out[1][0].to(torch.int32),
+               best_col=out[2][0].to(torch.int32),
+               best_in=out[3].permute(2, 1, 0).to(torch.int8).contiguous())
+    k = 4
+    if want_state:
+        res.update(out_ssb=out[k].t().to(torch.int32).contiguous(),
+                   out_hp=to_i32_bits(out[k + 1].t()).contiguous(),
+                   out_hn=to_i32_bits(out[k + 2].t()).contiguous())
+        k += 3
+    if want_xcells:
+        res.update(xbest=out[k][0].to(torch.int32),
+                   xslot=out[k + 1][0].to(torch.int32),
+                   xrow=out[k + 2][0].to(torch.int32))
+    return _fa.FragResult(**res)
 
 
 def frag_core_cuda(node_eq, node_len, band_nodes, band_in, band_level,
@@ -51,6 +95,65 @@ def frag_core_cuda(node_eq, node_len, band_nodes, band_in, band_level,
     int32 bits (N2, 4), node_len int32 (N2,), band_nodes int32 (F, B),
     band_in int8 (F, B, max_in), band_level int8 (F, B), seed_shift int32
     (F,), req uint32 bits in int32 (F, S, 4), rows int32 (F,)."""
+    F, B = band_nodes.shape
+    _check_inputs(node_eq, node_len, band_nodes, band_in, band_level,
+                  seed_shift, req, rows, S, max_in, (F,))
+    out = _result_views(_result_buffer(F, B, S, band_nodes.device), F, B, S)
+    if F:
+        L = _cuda.lib()
+        rc = L.frag_core_launch(
+            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
+            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
+            req.data_ptr(), rows.data_ptr(), node_eq.shape[0], F, B, S,
+            max_in, n_levels, *(x.data_ptr() for x in out[:4]),
+            _cuda.stream_ptr(band_nodes))
+        _cuda.check(rc, "frag_core")
+        _cuda.count_launch("frag_core")
+    return out
+
+
+def frag_core_carried_cuda(node_eq, node_len, band_nodes, band_in,
+                           band_level, seed_shift, req, rows, *, S: int,
+                           max_in: int, n_levels: int, carry=None,
+                           want_state: bool = False,
+                           want_xcells: bool = False) -> _fa.FragResult:
+    """Launch the kernel's carried entry: frag_core_cuda's inputs, with
+    seed_shift int32 (F,) (slot 0 only) or (F, B) (every slot), and carry
+    None or (ssb, hp, hn) int32 (F, B) (hp / hn as uint32 bits).  The
+    outputs of want_state (out_ssb, out_hp, out_hn (F, B)) and of
+    want_xcells (xbest, xslot, xrow (F,)) share one buffer with the
+    others."""
+    F, B = band_nodes.shape
+    per_slot = seed_shift.dim() == 2
+    _check_inputs(node_eq, node_len, band_nodes, band_in, band_level,
+                  seed_shift, req, rows, S, max_in,
+                  (F, B) if per_slot else (F,))
+    if carry is not None:
+        _cuda.require_cuda_all([(name, c, (F, B), None) for name, c in
+                                zip(("carry ssb", "carry hp", "carry hn"),
+                                    carry)])
+    out = _result_views(_result_buffer(F, B, S, band_nodes.device,
+                                       want_state, want_xcells),
+                        F, B, S, want_state, want_xcells)
+    if F:
+        L = _cuda.lib()
+        null = 0
+        cs, ch, cn = ((c.data_ptr() for c in carry) if carry is not None
+                      else (null, null, null))
+        rc = L.frag_core_carried_launch(
+            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
+            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
+            req.data_ptr(), rows.data_ptr(), cs, ch, cn,
+            node_eq.shape[0], F, B, S, max_in, n_levels, int(per_slot),
+            *(x.data_ptr() if x is not None else null for x in out),
+            _cuda.stream_ptr(band_nodes))
+        _cuda.check(rc, "frag_core (carried entry)")
+        _cuda.count_launch("frag_core_carried")
+    return out
+
+
+def _check_inputs(node_eq, node_len, band_nodes, band_in, band_level,
+                  seed_shift, req, rows, S, max_in, shift_shape):
     F, B = band_nodes.shape
     N2 = node_eq.shape[0]
     if not 1 <= B <= MAX_B:
@@ -64,49 +167,69 @@ def frag_core_cuda(node_eq, node_len, band_nodes, band_in, band_level,
         ("band_nodes", band_nodes, (F, B), None),
         ("band_in", band_in, (F, B, max_in), i8),
         ("band_level", band_level, (F, B), i8),
-        ("seed_shift", seed_shift, (F,), None),
+        ("seed_shift", seed_shift, shift_shape, None),
         ("req", req, (F, S, 4), None),
         ("rows", rows, (F,), None)])
     for name, t in (("node_eq", node_eq), ("req", req)):
         if t.data_ptr() % 16:
             raise ValueError(f"frag_core: {name} is not 16-byte aligned")
-    out = _result_views(torch.empty(3 * F + -(-F * B * S // 4),
-                                    dtype=torch.int32,
-                                    device=band_nodes.device), F, B, S)
-    if F:
-        L = _cuda.lib()
-        rc = L.frag_core_launch(
-            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
-            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
-            req.data_ptr(), rows.data_ptr(), N2, F, B, S, max_in, n_levels,
-            *(x.data_ptr() for x in out), _cuda.stream_ptr(band_nodes))
-        _cuda.check(rc, "frag_core")
-        _cuda.count_launch("frag_core")
-    return out
 
 
-def _result_views(buf, F: int, B: int, S: int) -> _fa.FragResult:
+def _result_buffer(F: int, B: int, S: int, device, want_state: bool = False,
+                   want_xcells: bool = False):
+    """The int32 buffer of every output of one launch."""
+    n = 3 * F + (3 * F * B if want_state else 0) + (3 * F if want_xcells
+                                                      else 0)
+    return torch.empty(n + -(-F * B * S // 4), dtype=torch.int32,
+                       device=device)
+
+
+def _result_views(buf, F: int, B: int, S: int, want_state: bool = False,
+                  want_xcells: bool = False) -> _fa.FragResult:
     """A FragResult of views of one int32 buffer: best_score, best_slot,
-    best_col, then best_in's bytes."""
-    return _fa.FragResult(
-        best_score=buf[:F], best_slot=buf[F:2 * F], best_col=buf[2 * F:3 * F],
-        best_in=buf[3 * F:].view(torch.int8)[:F * B * S].view(F, B, S))
+    best_col, [out_ssb, out_hp, out_hn], [xbest, xslot, xrow], then
+    best_in's bytes."""
+    res, o = {}, 0
+    for name in ("best_score", "best_slot", "best_col"):
+        res[name] = buf[o:o + F]
+        o += F
+    if want_state:
+        for name in ("out_ssb", "out_hp", "out_hn"):
+            res[name] = buf[o:o + F * B].view(F, B)
+            o += F * B
+    if want_xcells:
+        for name in ("xbest", "xslot", "xrow"):
+            res[name] = buf[o:o + F]
+            o += F
+    res["best_in"] = buf[o:].view(torch.int8)[:F * B * S].view(F, B, S)
+    return _fa.FragResult(**res)
 
 
 def to_numpy(res: _fa.FragResult) -> _fa.FragResult:
     """A FragResult as numpy arrays, in one copy from the device when its
-    outputs share one buffer (as frag_core_cuda returns them)."""
+    outputs share one buffer (as the kernel's entries return them);
+    out_hp / out_hn come back as uint32."""
     st = res.best_score.untyped_storage()
-    if any(x.untyped_storage().data_ptr() != st.data_ptr() for x in res[1:]):
-        return _fa.FragResult(*(x.cpu().numpy() for x in res))
-    whole = torch.empty(0, dtype=torch.uint8, device=res.best_score.device)
-    raw = whole.set_(st, 0, (st.nbytes(),)).cpu().numpy()
-    out = []
-    for x in res:
-        o = x.storage_offset() * x.element_size()
-        n = x.numel() * x.element_size()
-        out.append(raw[o:o + n].view(_NP_DTYPE[x.dtype]).reshape(x.shape))
-    return _fa.FragResult(*out)
+    present = [x for x in res if x is not None]
+    if any(x.untyped_storage().data_ptr() != st.data_ptr()
+           for x in present[1:]):
+        def get(x):
+            return x.cpu().numpy()
+    else:
+        whole = torch.empty(0, dtype=torch.uint8,
+                            device=res.best_score.device)
+        raw = whole.set_(st, 0, (st.nbytes(),)).cpu().numpy()
+
+        def get(x):
+            o = x.storage_offset() * x.element_size()
+            n = x.numel() * x.element_size()
+            return raw[o:o + n].view(_NP_DTYPE[x.dtype]).reshape(x.shape)
+    out = {k: (None if x is None else get(x))
+           for k, x in zip(res._fields, res)}
+    for k in ("out_hp", "out_hn"):
+        if out[k] is not None:
+            out[k] = out[k].view(np.uint32)
+    return _fa.FragResult(**out)
 
 
 _NP_DTYPE = {torch.int32: "int32", torch.int8: "int8"}

@@ -1,10 +1,11 @@
-"""align_reads: graph + indices + batched CLC alignment + GAF writer.
+"""align_reads: graph + indices + batched alignment + GAF writer.
 
-Port of the CLC branch of graphchainer_tpu/pipeline.py: a reader thread
-streams reads into batches, a thread pool runs ChainerModel.align_batch
-on up to `inflight` batches at once (host stages of one batch overlap
-device work of another), and the main thread writes GAF lines and sums
-the statistics in numpy.
+Port of graphchainer_tpu/pipeline.py for CLC mode (ChainerModel) and GA
+mode (--mode ga, GraphAlignerModel): a reader thread streams reads into
+batches, a thread pool runs the model's align_batch on up to `inflight`
+batches at once (host stages of one batch overlap device work of
+another), and the main thread writes GAF lines and sums the statistics in
+numpy.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from graphchainer_torch.align.evalue import EValueCalculator
 from graphchainer_torch.graph.alignment_graph import (AlignmentGraph,
                                                     build_alignment_graph)
 from graphchainer_torch.graph.mpc import MPCIndex, build_mpc
@@ -27,6 +29,8 @@ from graphchainer_torch.io import fastq
 from graphchainer_torch.io.gfa import load_gfa
 from graphchainer_torch.utils import timers
 from graphchainer_torch.io import gaf
+from graphchainer_torch.models.aligner import (AlignerConfig,
+                                               GraphAlignerModel)
 from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
 
 
@@ -43,9 +47,22 @@ class PipelineParams:
     seed_w: int = 20
     discard_fraction: float = 0.0002
     chainer: ChainerConfig = field(default_factory=ChainerConfig)
+    mode: str = "clc"          # clc (chaining) / ga (extension)
     cigar_match_mismatch: bool = False
     device: str = "cuda"
     verbose: bool = False
+    x_drop: Optional[int] = None              # --X-drop (GA mode)
+    precise_clipping: Optional[float] = None  # --precise-clipping
+    ramp_band_slots: int = 0                  # --ramp-bandwidth/-B (GA)
+    bandwidth: Optional[int] = None           # -b (GA band slots; CLC via
+                                              # chainer.band_slots)
+    selection_method: str = "GreedyLength"    # --all-alignments/--greedy-*
+    e_cutoff: float = -1.0                    # --E-cutoff (-1 = off)
+    evalue_legacy_score: bool = False
+    try_all_seeds: bool = False               # --try-all-seeds (GA mode)
+    seed_extend_density: float = -1.0         # --seeds-extend-density
+    min_cluster_size: int = 0                 # --seeds-clustersize
+    global_alignment: bool = False            # --global-alignment (GA)
 
 
 @dataclass
@@ -61,9 +78,10 @@ class AlignmentStats:
     seconds: float = 0.0
 
 
-def load_graph(path: str) -> AlignmentGraph:
-    """GFA input (.gfa / .gfa.gz); CLC needs a DAG."""
-    return build_alignment_graph(load_gfa(path))
+def load_graph(path: str, allow_cycles: bool = False) -> AlignmentGraph:
+    """GFA input (.gfa / .gfa.gz).  allow_cycles: GA mode aligns cyclic
+    graphs; CLC mode needs a DAG."""
+    return build_alignment_graph(load_gfa(path), allow_cycles=allow_cycles)
 
 
 def get_or_build_mpc(g: AlignmentGraph, cache: Optional[str]) -> MPCIndex:
@@ -90,20 +108,62 @@ def get_or_build_minimizer(g: AlignmentGraph,
 def align_reads(params: PipelineParams) -> AlignmentStats:
     t0 = time.time()
     try:
-        g = load_graph(params.graph_file)
+        g = load_graph(params.graph_file,
+                       allow_cycles=(params.mode == "ga"))
     except ValueError as e:
-        if "directed cycle" in str(e):
+        if "directed cycle" in str(e) and params.mode != "ga":
             print("The input sequence graph has a directed cycle.\n"
-                  "Colinear chaining only supports DAGs.", file=sys.stderr)
+                  "Colinear chaining only supports DAGs; re-run with "
+                  "--no-colinear-chaining (GA mode) to align cyclic "
+                  "graphs.", file=sys.stderr)
             sys.exit(1)
         raise
     if params.verbose:
         print(f"graph: {g.stats()}")
     index = get_or_build_minimizer(g, params)
-    mpc = get_or_build_mpc(g, params.mpc_index_file)
-    model = ChainerModel(g, mpc, index, params.chainer,
-                         device=params.device)
+    if params.mode != "ga" and (
+            params.x_drop is not None
+            or (params.precise_clipping is not None
+                and params.e_cutoff == -1.0)):
+        print("WARNING: outside --mode ga, --X-drop is ignored and "
+              "--precise-clipping only feeds --E-cutoff E-values",
+              file=sys.stderr)
+    if params.mode == "ga":
+        # X-drop without precise-clipping defaults the identity cutoff to
+        # .66, like the reference (src/AlignerMain.cpp:443-447)
+        pc = params.precise_clipping
+        if params.x_drop is not None and pc is None:
+            pc = 0.66
+        model = GraphAlignerModel(
+            g, index,
+            AlignerConfig(seed_density=params.chainer.seed_density,
+                          polish_band_words=params.chainer.polish_band_words,
+                          x_drop=params.x_drop, precise_clipping=pc,
+                          ramp_band_slots=params.ramp_band_slots,
+                          selection_method=params.selection_method,
+                          e_cutoff=params.e_cutoff,
+                          evalue_legacy_score=params.evalue_legacy_score,
+                          try_all_seeds=params.try_all_seeds,
+                          seed_extend_density=params.seed_extend_density,
+                          min_cluster_size=params.min_cluster_size,
+                          global_alignment=params.global_alignment,
+                          **({"band_slots": params.bandwidth}
+                             if params.bandwidth else {})),
+            device=params.device)
+    else:
+        mpc = get_or_build_mpc(g, params.mpc_index_file)
+        model = ChainerModel(g, mpc, index, params.chainer,
+                             device=params.device)
     stats = AlignmentStats()
+
+    ecalc = None
+    if params.e_cutoff != -1.0:
+        # identity defaults to .5 like the reference (AlignerMain.cpp:172)
+        ecalc = EValueCalculator(params.precise_clipping
+                                 if params.precise_clipping is not None
+                                 else 0.5,
+                                 legacy_score=params.evalue_legacy_score)
+        db_size = int(np.sum(g.node_len)) // 2
     batch_q: "queue.Queue" = queue.Queue(maxsize=4)
 
     def reader():
@@ -143,10 +203,18 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
                 stats.assertion_broke = True
             if aln.failed:
                 continue
+            emitted = [aln] + list(aln.secondary)
+            if ecalc is not None:
+                emitted = [a for a in emitted
+                           if ecalc.evalue(db_size, len(aln.seq),
+                                           a.seq_end - a.seq_start, a.score)
+                           <= params.e_cutoff]
+                if not emitted:
+                    continue
+                aln = emitted[0]
             row[4] = 1
-            row[5] = 1 + len(aln.secondary)
-            row[6] = sum(a.seq_end - a.seq_start
-                         for a in [aln] + list(aln.secondary))
+            row[5] = len(emitted)
+            row[6] = sum(a.seq_end - a.seq_start for a in emitted)
             if gaf_f:
                 line = gaf.gaf_line(g, aln,
                                     cigar_merge_mm=params.cigar_match_mismatch)

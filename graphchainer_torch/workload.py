@@ -9,10 +9,19 @@ in jax).
 
 polish_hard_pairs makes the (read, path) pairs that the polish kernels
 must survive, for the CPU tests (small) and the smoke run (full size);
-frag_hard_batch the fragment batch that the fragment DP must survive.
+frag_hard_batch the fragment batch that the fragment DP must survive,
+and frag_hard_carry a carried state for it.
+
+golden_cyclic_workload and golden_badread_workload are copies of
+build_workload of scripts/make_golden_cyclic.py and
+scripts/make_golden_badread.py (which import the JAX package): the
+workloads whose per-read edit distances of the reference binary are
+pinned in tests/data/golden_cyclic.json and golden_badread.json, which
+nw_edit_distance (tests/test_polish.py's scorer) reads against.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -20,9 +29,9 @@ import numpy as np
 from graphchainer_torch.graph.alignment_graph import build_alignment_graph
 from graphchainer_torch.graph.mpc import build_mpc
 from graphchainer_torch.graph.simulate import (generate_path, mutate_read,
-                                               simulate_reads)
+                                               simulate_reads, tangle_bigraph)
 from graphchainer_torch.index.minimizer import build_index
-from graphchainer_torch.io.gfa import Bigraph
+from graphchainer_torch.io.gfa import Bigraph, load_gfa
 
 
 def build_bench_graph(rng, total_bp: int) -> Bigraph:
@@ -155,6 +164,32 @@ def frag_hard_batch(seed: int, F: int = 256, B: int = 8, max_in: int = 4,
             req, rows)
 
 
+def frag_hard_carry(seed: int, band_nodes: np.ndarray,
+                    node_len: np.ndarray):
+    """A random carried state and per-slot seed trims for a batch of
+    frag_hard_batch, the inputs of the fragment DP's carried windows:
+    carry (ssb int32, hp uint32, hn uint32) each (F, B), with invalid
+    slots (ssb = BIG) among boundary scores of 0..200 and disjoint
+    random hp / hn bits, and shifts (F, B) int32, most 0, some a random
+    part of the slot's node and some all of it (a length-0 slot).
+    Returns (carry, shifts)."""
+    rng = np.random.default_rng(seed)
+    F, B = band_nodes.shape
+    big = 1 << 28
+    ssb = np.where(rng.random((F, B)) < 0.2, big,
+                   rng.integers(0, 201, (F, B))).astype(np.int32)
+    bits = rng.integers(0, 1 << 32, (F, B), dtype=np.uint64).astype(np.uint32)
+    sign = rng.integers(0, 1 << 32, (F, B), dtype=np.uint64).astype(np.uint32)
+    hp, hn = bits & sign, bits & ~sign
+    lens = np.where(band_nodes >= 0,
+                    node_len[np.clip(band_nodes, 0, len(node_len) - 1)], 0)
+    r = rng.random((F, B))
+    part = (rng.random((F, B)) * (lens + 1)).astype(np.int32)
+    shifts = np.where(r < 0.6, 0, np.where(r < 0.9, part, lens))
+    return (ssb, hp, hn), np.where(band_nodes >= 0, shifts, 0).astype(
+        np.int32)
+
+
 def polish_hard_pairs(seed: int, n_plain: int, length: int, indel: int = 200):
     """(label, read, path) triples for the polish fill and walk: `n_plain`
     reads of ~`length` bp at 10% error against their true path, mixed
@@ -198,3 +233,95 @@ def polish_hard_pairs(seed: int, n_plain: int, length: int, indel: int = 200):
     for i in range(max(len(out), len(hard))):
         mixed += out[i:i + 1] + hard[i:i + 1]
     return mixed
+
+
+def _write_gfa(bg: Bigraph, path: str) -> None:
+    with open(path, "w") as f:
+        f.write("H\tVN:Z:1.0\n")
+        for name, seq in zip(bg.names, bg.seqs):
+            f.write(f"S\t{name}\t{seq}\n")
+        for a, ar, b, br, ov in bg.links:
+            f.write(f"L\t{bg.names[a]}\t{'-' if ar else '+'}"
+                    f"\t{bg.names[b]}\t{'-' if br else '+'}\t{ov}M\n")
+
+
+def golden_cyclic_workload(tmpdir: str):
+    """The cyclic golden set (scripts/make_golden_cyclic.py
+    build_workload): three circular plasmids (cycles of ~240 / 500 / 900
+    bp) and a tangle backbone with back edges, and 36 reads lapping the
+    cycles 1.5-3 times at 0 / 8 / 15% error.  Returns (gfa path, the
+    cyclic AlignmentGraph, reads)."""
+    rng = np.random.default_rng(71)
+    bg = Bigraph()
+    units = []
+    for p, (segs, bp) in enumerate([(2, 120), (2, 250), (3, 300)]):
+        ids = [bg.add_segment(f"p{p}s{i}",
+                              "".join(rng.choice(list("ACGT"), bp)))
+               for i in range(segs)]
+        for i in range(segs):
+            bg.links.append((ids[i], False, ids[(i + 1) % segs], False, 0))
+        units.append("".join(bg.seqs[i] for i in ids))
+    tg = tangle_bigraph(rng, n_knots=6, arms=4, spacer=60, arm_len=10,
+                        nested=True, cycle_every=2)
+    off = len(bg.names)
+    for name, seq in zip(tg.names, tg.seqs):
+        bg.add_segment(f"t{name}", seq)
+    for a, ar, b, br, ov in tg.links:
+        bg.links.append((a + off, ar, b + off, br, ov))
+    gfa = os.path.join(tmpdir, "cyclic.gfa")
+    _write_gfa(bg, gfa)
+    g = build_alignment_graph(load_gfa(gfa), allow_cycles=True)
+
+    reads = []
+    err_rng = np.random.default_rng(72)
+    ri = 0
+    for err in (0.0, 0.08, 0.15):
+        for u, unit in enumerate(units):
+            for lap_i in range(4):
+                laps = 1.5 + 0.5 * lap_i
+                start = int(err_rng.integers(0, len(unit)))
+                L = int(len(unit) * laps)
+                frag = ((unit * 5)[start:start + L])
+                per = err / 3
+                read = (mutate_read(err_rng, frag, sub=per, ins=per,
+                                    dele=per) if err else frag)
+                reads.append((f"cyc{ri}_u{u}_e{int(err*100)}", read))
+                ri += 1
+    return gfa, g, reads
+
+
+def golden_badread_workload(tmpdir: str):
+    """The badread golden set (scripts/make_golden_badread.py
+    build_workload): the bench generator at 30 kbp (default_rng(53)) and
+    80 reads of ~2000 bp in the badread error profile at a mean identity
+    of 0.88.  Returns (gfa path, AlignmentGraph, reads)."""
+    rng = np.random.default_rng(53)
+    bg = build_bench_graph(rng, 30_000)
+    gfa = os.path.join(tmpdir, "badread.gfa")
+    _write_gfa(bg, gfa)
+    g = build_alignment_graph(load_gfa(gfa))
+    path_seq, _ = generate_path(g, seed=3)
+    reads = simulate_reads(path_seq, 80, 2000, seed=29, error_rate=0.12,
+                           len_std=300, profile="badread")
+    return gfa, g, reads
+
+
+def nw_edit_distance(a: str, b: str) -> int:
+    """Global edit distance of two strings (unit costs), row by row
+    (tests/test_polish.py's nw_edit_distance)."""
+    la, lb = len(a), len(b)
+    D = np.zeros((la + 1, lb + 1), dtype=np.int64)
+    D[:, 0] = np.arange(la + 1)
+    D[0, :] = np.arange(lb + 1)
+    for i in range(1, la + 1):
+        sub = (np.frombuffer(b.encode(), np.uint8)
+               != ord(a[i - 1])).astype(np.int64)
+        row = D[i - 1]
+        t = np.minimum(row[:-1] + sub, row[1:] + 1)
+        # sequential min over the row (vectorized prefix trick)
+        idx = np.arange(lb + 1)
+        tt = np.empty(lb + 1, dtype=np.int64)
+        tt[0] = row[0] + 1
+        tt[1:] = t
+        D[i] = np.minimum.accumulate(tt - idx) + idx
+    return int(D[la, lb])

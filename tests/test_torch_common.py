@@ -227,6 +227,9 @@ _PORT_MODULES = [
     "graphchainer_torch.ops._cuda",
     "graphchainer_torch.align.anchors", "graphchainer_torch.align.chaining",
     "graphchainer_torch.align.polish", "graphchainer_torch.align.emit",
+    "graphchainer_torch.align.correctness", "graphchainer_torch.align.evalue",
+    "graphchainer_torch.align.selection", "graphchainer_torch.align.stitch",
+    "graphchainer_torch.models.aligner",
     "graphchainer_torch.io.gaf", "graphchainer_torch.io.gfa",
     "graphchainer_torch.io.fastq", "graphchainer_torch.native",
     "graphchainer_torch.constants", "graphchainer_torch.convert",

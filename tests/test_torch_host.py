@@ -1,9 +1,11 @@
 """The port's own host layer against the JAX package's modules it was
-copied from: constants, utils, io, native bindings, graph, index and the
-read simulator.  The same GFA text and the same numpy-seeded reads go
-through both packages, and every output must be exactly equal.  Also
-convert.py, which carries the reference's state across to the port's
-classes."""
+copied from: constants, utils, io, native bindings, graph, index, the
+read simulator, GA mode's host modules (align/correctness, evalue,
+selection, stitch.path_to_positions, the GA job assembly of
+align/anchors) and the golden workloads of scripts/.  The same GFA text
+and the same numpy-seeded reads go through both packages, and every
+output must be exactly equal.  Also convert.py, which carries the
+reference's state across to the port's classes."""
 import dataclasses
 import gzip
 
@@ -13,6 +15,10 @@ import pytest
 from graphchainer_tpu import constants as JK
 from graphchainer_tpu import native as JN
 from graphchainer_tpu.align import anchors as JA
+from graphchainer_tpu.align import correctness as JCOR
+from graphchainer_tpu.align import evalue as JEV
+from graphchainer_tpu.align import selection as JSEL
+from graphchainer_tpu.align import stitch as JST
 from graphchainer_tpu.graph import alignment_graph as JAG
 from graphchainer_tpu.graph import mpc as JMPC
 from graphchainer_tpu.graph import simulate as JSIM
@@ -25,7 +31,12 @@ from graphchainer_tpu.utils import seq as JS
 from graphchainer_torch import constants as TK
 from graphchainer_torch import convert
 from graphchainer_torch import native as TN
+from graphchainer_torch import workload as TW
 from graphchainer_torch.align import anchors as TA
+from graphchainer_torch.align import correctness as TCOR
+from graphchainer_torch.align import evalue as TEV
+from graphchainer_torch.align import selection as TSEL
+from graphchainer_torch.align import stitch as TST
 from graphchainer_torch.graph import alignment_graph as TAG
 from graphchainer_torch.graph import mpc as TMPC
 from graphchainer_torch.graph import simulate as TSIM
@@ -303,7 +314,7 @@ def native_calls(world):
     results of its native stage calls recorded."""
     t = world["t"]
     model = TC.ChainerModel(t["g"], t["mpc"], t["index"],
-                            TC.ChainerConfig(escalate_threshold=None),
+                            TC.ChainerConfig(rescue_threshold=0.0),
                             device="cpu")
     calls = {}
     names = ("seed_window_batch", "join_anchors", "stitch_batch",
@@ -348,8 +359,8 @@ def test_native_stage_calls(world, native_calls, name):
 
 @pytest.mark.parametrize("name", ["topo_order", "scc_order", "approx_pos",
                                   "connected_components", "mpc_build",
-                                  "band_build", "find_chains",
-                                  "minimizer_build"])
+                                  "band_build", "band_build_multi",
+                                  "find_chains", "minimizer_build"])
 def test_native_graph_calls(world, name):
     g = world["t"]["g"]
     n = g.n_nodes
@@ -365,6 +376,18 @@ def test_native_graph_calls(world, name):
         seeds = np.arange(0, n, 9, dtype=np.int64)
         args = (n, g.out_ptr, g.out_idx, g.node_len, seeds,
                 np.ones_like(seeds), 16, 200, 4, False)
+    elif name == "band_build_multi":
+        # ragged multi-source jobs (an empty one too), both directions'
+        # CSRs and the by_dist order of cyclic graphs
+        src = np.arange(0, n, 5, dtype=np.int64)
+        off = np.array([0, 3, 3, 7, len(src)], dtype=np.int64)
+        for rev, by_dist in ((False, False), (True, True)):
+            ptr, idx = (g.in_ptr, g.in_idx) if rev else (g.out_ptr,
+                                                        g.out_idx)
+            a = (n, ptr, idx, g.node_len, off, src, 24, 150, 4, rev)
+            same(JN.band_build_multi(*a, by_dist=by_dist),
+                 TN.band_build_multi(*a, by_dist=by_dist), name)
+        return
     elif name == "find_chains":
         args = (n, g.out_ptr, g.out_idx, g.in_ptr, g.in_idx, g.node_len,
                 g.di_ptr, g.di_splits)
@@ -379,6 +402,149 @@ def test_native_graph_calls(world, name):
 def test_native_topo_order_refuses_a_cycle():
     with pytest.raises(ValueError):
         TN.topo_order(2, np.array([0, 1]), np.array([1, 0]))
+
+
+# ------------------------------------------------------------ GA mode
+def test_correctness_hmm():
+    rng = np.random.default_rng(4)
+    errs = rng.integers(0, 40, 60)
+    rows = rng.integers(1, 65, 60)
+    same(JCOR.correctness_track(errs, rows), TCOR.correctness_track(errs,
+                                                                   rows))
+    js, ts = JCOR.CorrectnessState(), TCOR.CorrectnessState()
+    for e, r in zip(errs, rows):
+        js, ts = js.next_state(int(e), int(r)), ts.next_state(int(e), int(r))
+        same(vars(js), vars(ts))
+        same(js.current_is_correct(), ts.current_is_correct())
+
+
+@pytest.mark.parametrize("identity", [-1.0, 0.5, 0.66, 0.9])
+@pytest.mark.parametrize("legacy", [False, True])
+def test_evalue(identity, legacy):
+    j = JEV.EValueCalculator(identity, legacy_score=legacy)
+    t = TEV.EValueCalculator(identity, legacy_score=legacy)
+    same(vars(j), vars(t))
+    for L, e in ((100, 0), (100, 10), (2000, 240), (35, 30)):
+        same(j.alignment_score(L, e), t.alignment_score(L, e))
+        same(j.evalue(60_000, 3000, L, e), t.evalue(60_000, 3000, L, e))
+
+
+def _alignments(seed, n):
+    """Read intervals and scores of n alignments of one 2 kbp read, as
+    JAX and port ReadAlignments."""
+    rng = np.random.default_rng(seed)
+    out = {"j": [], "t": []}
+    for i in range(n):
+        a = int(rng.integers(0, 1800))
+        b = int(rng.integers(a + 20, 2001))
+        sc = int(rng.integers(0, (b - a) // 3 + 1))
+        for key, cls in (("j", JC.ReadAlignment), ("t", TC.ReadAlignment)):
+            out[key].append(cls(name=f"a{i}", seq="", positions=[],
+                                ops=None, score=sc, seq_start=a,
+                                seq_end=b))
+    return out
+
+
+@pytest.mark.parametrize("method", [m.value for m in JSEL.SelectionMethod])
+def test_selection(method):
+    """select_alignments picks the same alignments in the same order,
+    with and without an E-value cutoff."""
+    alns = _alignments(6, 14)
+    for e_cutoff in (-1.0, 1e-30):
+        got = {}
+        for key, mod, ev in (("j", JSEL, JEV), ("t", TSEL, TEV)):
+            opts = mod.SelectionOptions(
+                method=mod.SelectionMethod(method), graph_size=60_000,
+                read_size=2000, e_cutoff=e_cutoff,
+                evalue_calc=ev.EValueCalculator(0.5))
+            got[key] = [a.name for a in mod.select_alignments(alns[key],
+                                                              opts)]
+        same(got["j"], got["t"], method)
+        assert got["t"] or e_cutoff != -1.0
+
+
+def test_path_to_positions(world):
+    jg, tg = world["j"]["g"], world["t"]["g"]
+    rng = np.random.default_rng(7)
+    for _ in range(20):
+        path = rng.integers(0, jg.n_nodes, int(rng.integers(0, 6)))
+        lens = jg.node_len[path] if len(path) else [1]
+        fo = int(rng.integers(0, lens[0]))
+        lo = int(rng.integers(0, lens[-1]))
+        same(JST.path_to_positions(jg, path, fo, lo),
+             TST.path_to_positions(tg, path, fo, lo))
+
+
+def _ga_jobs(world, rng, carried):
+    """Fresh or carried GA window jobs of both packages over the world
+    graph: read rows from the world's reads, seeds anywhere, and for the
+    carried ones an old band with its state, sources and shifts."""
+    g = world["j"]["g"]
+    jobs = {"j": [], "t": []}
+    for i in range(9):
+        read = world["reads"][i % 4][1]
+        r0 = int(rng.integers(0, len(read) - 70))
+        rmm = JS.match_masks(read[r0:r0 + int(rng.integers(1, 65))])
+        rev = bool(i % 2)
+        if not carried:
+            v = int(rng.integers(0, g.n_nodes))
+            kw = dict(rmm=rmm, seed_node=v, reverse=rev,
+                      seed_trim_len=int(rng.integers(0, g.node_len[v] + 1)))
+            jobs["j"].append(JA.FragJob(**kw))
+            jobs["t"].append(TA.FragJob(**kw))
+            continue
+        B = 16
+        old = np.full(B, -1, np.int64)
+        k = int(rng.integers(1, B))
+        old[:k] = np.sort(rng.choice(g.n_nodes, k, replace=False))
+        ssb = np.where(rng.random(B) < 0.8, rng.integers(0, 90, B),
+                       1 << 28).astype(np.int32)
+        hp = rng.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32)
+        kw = dict(rmm=rmm, reverse=rev, old_nodes=old, old_ssb=ssb,
+                  old_hp=hp, old_hn=~hp, src_mask=rng.random(B) < 0.7,
+                  old_shift=(rng.integers(0, 5, B).astype(np.int32)
+                             if i % 3 else None))
+        jobs["j"].append(JA.CarryJob(**kw))
+        jobs["t"].append(TA.CarryJob(**kw))
+    return jobs
+
+
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+@pytest.mark.parametrize("B", [16, 48])
+def test_assemble_ga_windows(world, carried, B):
+    """assemble_batch / assemble_carry_batch: bands, shifts, slot map,
+    carried state and read planes of GA windows."""
+    jobs = _ga_jobs(world, np.random.default_rng(8 + B), carried)
+    jfn, tfn = ((JA.assemble_carry_batch, TA.assemble_carry_batch)
+                if carried else (JA.assemble_batch, TA.assemble_batch))
+    jgx = JA.GraphTensors.build(world["j"]["g"])
+    tgx = TA.GraphTensors.build(world["t"]["g"])
+    ref = jfn(jgx, jobs["j"], B=B, max_in=4, slack=16)
+    got = tfn(tgx, jobs["t"], B=B, max_in=4, slack=16)
+    same(ref, got, "carried" if carried else "fresh")
+    assert (ref[0] >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("which", ["cyclic", "badread"])
+def test_golden_workloads(which, tmp_path):
+    """workload's golden sets are scripts/make_golden_*.py's
+    build_workload, and nw_edit_distance is tests/test_polish.py's."""
+    import importlib.util
+    import os
+    from test_polish import nw_edit_distance
+    spec = importlib.util.spec_from_file_location(
+        f"make_golden_{which}", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "scripts", f"make_golden_{which}.py"))
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    _, jg, jreads = mg.build_workload(str(tmp_path))
+    _, tg, treads = getattr(TW, f"golden_{which}_workload")(str(tmp_path))
+    same(jreads, treads)
+    same(vars(jg), vars(tg))
+    for (_, a), (_, b) in zip(jreads[:2], jreads[2:4]):
+        same(nw_edit_distance(a[:300], b[:280]),
+             TW.nw_edit_distance(a[:300], b[:280]))
 
 
 # ------------------------------------------------------------ convert
@@ -403,15 +569,21 @@ def test_convert(world, what):
         assert type(got) is TMIN.MinimizerIndex
         same(got, t["index"])
     elif what == "config":
-        jcfg = JC.ChainerConfig(rescue_threshold=0.0,
-                                escalate_threshold=0.35,
+        jcfg = JC.ChainerConfig(rescue_threshold=0.2,
+                                escalate_threshold=0.3,
                                 auto_compare_dense=False, band_slots=48)
         got = convert.from_reference_config(dataclasses.asdict(jcfg))
-        assert got == TC.ChainerConfig(band_slots=48)
+        assert got == TC.ChainerConfig(rescue_threshold=0.2,
+                                       escalate_threshold=0.3,
+                                       auto_compare_dense=False,
+                                       band_slots=48)
     elif what == "config_inherits":
+        # escalate_threshold=None inherits rescue_threshold in both
         got = convert.from_reference_config(
             dataclasses.asdict(JC.ChainerConfig()))
-        assert got.escalate_threshold == got.rescue_threshold == 0.35
+        assert got == TC.ChainerConfig()
+        assert got.escalate_threshold is None
+        assert got.rescue_threshold == 0.35
     elif what == "copies":
         got = convert.from_reference_graph(vars(j["g"]))
         assert not np.shares_memory(got.node_len, j["g"].node_len)

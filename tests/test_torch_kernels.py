@@ -41,8 +41,8 @@ def test_cpu_tensors_run_plain_versions():
     assert torch.equal(walk, ref)
     assert set(_cuda.launches().values()) == {0}
     assert set(_cuda.launches()) == {
-        "frag_core", "polish_core", "polish_walk", "polish_core_serial",
-        "polish_walk_serial"}
+        "frag_core", "frag_core_carried", "polish_core", "polish_walk",
+        "polish_core_serial", "polish_walk_serial"}
 
 
 @pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
@@ -152,15 +152,30 @@ def test_frag_outputs_come_home_in_one_copy():
     F, B, S = 5, 3, 2
     buf = torch.arange(3 * F + -(-F * B * S // 4), dtype=torch.int32)
     res = frag_kernel._result_views(buf, F, B, S)
-    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res)
+    assert all(x.untyped_storage().data_ptr() == buf.data_ptr()
+               for x in res[:4]) and set(res[4:]) == {None}
     assert res.best_in.shape == (F, B, S) and res.best_in.dtype == torch.int8
     host = frag_kernel.to_numpy(res)
     np.testing.assert_array_equal(host.best_slot, np.arange(F, 2 * F))
     np.testing.assert_array_equal(host.best_in.reshape(-1),
                                   buf[3 * F:].numpy().view(np.int8)[:F * B * S])
-    sep = frag_kernel.to_numpy(frag_align.FragResult(*(x.clone() for x in res)))
+    sep = frag_kernel.to_numpy(frag_align.FragResult(
+        *(x.clone() for x in res[:4])))
     for a, b in zip(sep, host):
         np.testing.assert_array_equal(a, b)
+    # the carried entry's outputs share the buffer too; hp / hn come home
+    # as uint32
+    buf = torch.arange(6 * F + 3 * F * B + -(-F * B * S // 4),
+                       dtype=torch.int32) - 7
+    res = frag_kernel._result_views(buf, F, B, S, True, True)
+    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res)
+    host = frag_kernel.to_numpy(res)
+    assert host.out_hp.dtype == np.uint32 and host.out_hp.shape == (F, B)
+    np.testing.assert_array_equal(host.out_hn.view(np.int32),
+                                  buf[3 * F + 2 * F * B:3 * F + 3 * F * B]
+                                  .numpy().reshape(F, B))
+    np.testing.assert_array_equal(host.xrow, buf[5 * F + 3 * F * B:
+                                                 6 * F + 3 * F * B].numpy())
     arrays = [np.arange(7, dtype=np.int32), np.arange(-3, 6, dtype=np.int8)
               .reshape(3, 3), np.arange(8, dtype=np.int32).reshape(2, 4)]
     views = upload(arrays, "cpu")
@@ -168,6 +183,47 @@ def test_frag_outputs_come_home_in_one_copy():
     for a, v in zip(arrays, views):
         assert v.data_ptr() % 16 == 0
         np.testing.assert_array_equal(a, v.numpy())
+
+
+def carried_case(seed=3, F=96, **shape):
+    """workload.frag_hard_batch with workload.frag_hard_carry's state and
+    per-slot trims, as CPU tensors in the kernel's types, and the keyword
+    arguments of frag_core with both extra outputs."""
+    from graphchainer_torch.align.anchors import level_bucket
+    from graphchainer_torch.workload import frag_hard_batch, frag_hard_carry
+    eq, ln, bn, bi, bl, _, req, rows = frag_hard_batch(seed, F=F, **shape)
+    carry, shifts = frag_hard_carry(seed, bn, ln)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa
+    args = (t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(bl), t(shifts),
+            t(req.view(np.int32)), t(rows))
+    return args, dict(S=req.shape[1], max_in=bi.shape[2],
+                      n_levels=level_bucket(bl, bn.shape[1]),
+                      carry=tuple(t(c.view(np.int32)) for c in carry),
+                      want_state=True, want_xcells=True)
+
+
+def test_carried_plain_version():
+    """On CPU tensors the carried windows run the plain version: every
+    field is there, in the kernel's types, and a carried state changes
+    the result of the same batch."""
+    args, kw = carried_case()
+    res = frag_kernel.frag_core(*args, **kw)
+    F, B = args[2].shape
+    for name in ("out_ssb", "out_hp", "out_hn"):
+        x = getattr(res, name)
+        assert x.dtype == torch.int32 and x.shape == (F, B), name
+    for name in ("xbest", "xslot", "xrow"):
+        assert getattr(res, name).shape == (F,), name
+    fresh = frag_kernel.frag_core(*args, **dict(kw, carry=None))
+    assert not torch.equal(res.best_score, fresh.best_score)
+    pad = args[4] < 0
+    assert (res.out_ssb[pad] == 1 << 28).all()
+    assert (res.out_hp[pad] == 0).all() and (res.out_hn[pad] == 0).all()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        frag_kernel.frag_core_carried_cuda(*args, **kw)
+    with pytest.raises(ValueError, match="seed_shift: expected shape"):
+        frag_kernel.frag_core_carried_cuda(*args[:5], args[5][:, :1],
+                                           *args[6:], **kw)
 
 
 def test_frag_hard_batch_has_its_cases():
@@ -271,6 +327,31 @@ def test_polish_walk_matches_plain(cuda_device, bw):
                                              entry="serial")
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["carried", "carried-wide", "fresh-state"])
+def test_frag_kernel_carried_entry_matches_plain(cuda_device, case):
+    """The carried entry against its plain version on the card: a random
+    carried state and per-slot trims on the hard batch (B=8 / S=3, and
+    B=48 / S=2 at GA mode's width), and a fresh window with the state and
+    X-cell outputs; every output exact."""
+    if case == "carried-wide":
+        args, kw = carried_case(4, F=48, B=48, max_in=4, S=2)
+    else:
+        args, kw = carried_case()
+    if case == "fresh-state":
+        args = args[:5] + (torch.zeros(args[2].shape[0],
+                                       dtype=torch.int32),) + args[6:]
+        kw = dict(kw, carry=None)
+    dev = lambda t: t.contiguous().to(cuda_device)  # noqa: E731
+    carry = None if kw["carry"] is None else tuple(map(dev, kw["carry"]))
+    got = frag_kernel.frag_core(*map(dev, args), **dict(kw, carry=carry))
+    ref = frag_kernel.frag_core(*args, **kw)
+    torch.cuda.synchronize()
+    for name in frag_align.FragResult._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
+            name
 
 
 @pytest.mark.gpu
