@@ -51,10 +51,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 BIG_GRAPH_BP = 5_000_000     # phase 4: about an MHC-region graph
 ACC_ALIGNED_MIN = 0.99       # aligned_fraction lower bound
@@ -711,6 +712,398 @@ def run_golden(dev):
     return out
 
 
+# ---------------------------------------------------------------- frag_wide
+WIDE_FIELDS = ("best_score", "best_slot", "best_col", "best_in",
+               "end_score", "end_col")
+WIDE_SRC = "graphchainer_torch/csrc/frag_wide.cu"
+WIDE_TPU = "graphchainer_tpu/ops/frag_align.py:105"
+
+
+def wide_to_numpy(args, kw):
+    """align_fragments' arguments as numpy arrays, for a plain run in
+    another process."""
+    import torch
+    return ([a.cpu().numpy() for a in args],
+            {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+             for k, v in kw.items()})
+
+
+def wide_plain_job(arrs, kw_np):
+    """The plain version of frag_wide (frag_align.align_fragments_plain)
+    on the CPU, in a process of its own.  Returns (its outputs as numpy,
+    milliseconds)."""
+    import torch
+    torch.set_num_threads(1)
+    from graphchainer_torch.ops import frag_align
+    kw = {k: (torch.from_numpy(v) if hasattr(v, "dtype") else v)
+          for k, v in kw_np.items()}
+    t0 = time.perf_counter()
+    res = frag_align.align_fragments_plain(
+        *(torch.from_numpy(a) for a in arrs), **kw, want_state=False)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {k: getattr(res, k).numpy() for k in WIDE_FIELDS}, ms
+
+
+def wide_hard_inputs(dev, seed, full_start=True):
+    """workload.frag_wide_hard_batch on the card, as align_fragments
+    takes it."""
+    import numpy as np
+    import torch
+    from graphchainer_torch.workload import frag_wide_hard_batch
+    eq, ln, bn, bi, bl, ss, req, rows, base, nl = frag_wide_hard_batch(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(ss),
+            t(req.view(np.int32)), t(rows))
+    return args, dict(n_slices=req.shape[1], max_in=bi.shape[2],
+                      full_start=full_start, band_level=t(bl),
+                      n_levels=nl, seed_base=t(base))
+
+
+def wide_shape(args, kw) -> str:
+    F, B = args[2].shape
+    return (f"F={F} B={B} S={kw['n_slices']} max_in={kw['max_in']} "
+            f"n_levels={kw['n_levels']}")
+
+
+def wide_bound(args, kw, out):
+    """Bytes: the band arrays, read planes, rows and seed bases read once,
+    the 20 bytes (Eq words, length) of each node row the bands name, every
+    output written once.  Operations of the processed slots only: ~20 a
+    column a slice (the Myers step, its boundary and state bits), ~66 a
+    merge candidate a slice (33 rows, an add and a min each), and with
+    full_start ~66 more for every column of slice 0, where each column's
+    free-start merge runs (later slices skip it wherever the column's
+    boundary score lies below the free start's, which on these inputs is
+    nearly everywhere)."""
+    import torch
+    eq, ln, bn, bi, ss, req, rows = args
+    bl, S = kw["band_level"], kw["n_slices"]
+    live = (bl >= 0) & (bl < kw["n_levels"])
+    slen = torch.where(bn >= 0, ln[bn.clamp(min=0).long()], 0)
+    slen[:, 0] -= ss
+    cols = int(slen.clamp(1, 32)[live].sum())
+    cands = int(live.sum()) + int(((bi >= 0) & live[..., None]).sum())
+    ops = S * (20 * cols + 66 * cands)
+    if kw["full_start"]:
+        ops += 66 * cols
+    n_rows = int(torch.unique(bn[bn >= 0]).numel())
+    extra = [kw["seed_base"]] if kw.get("seed_base") is not None else []
+    b = (nbytes(bn, bi, bl, ss, req, rows, *extra) + 20 * n_rows
+         + nbytes(*(getattr(out, k) for k in WIDE_FIELDS)))
+    return bound(b, ops) + (b, ops)
+
+
+def ptxas_wide(log_text: str):
+    """{instantiation: (registers, stack frame, spill stores, spill loads)}
+    of frag_wide_kernel<int8_t / int16_t> from nvcc -Xptxas -v output."""
+    import re
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
+                      r"(?: for|$)", line.strip())
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"\d+frag_wide_kernelI([as])E", fn or "")
+        if not m:
+            continue
+        key = "frag_wide_kernel<%s>" % {"a": "int8_t",
+                                        "s": "int16_t"}[m.group(1)]
+        regs, stack, st, ld = out.get(key, (None, None, None, None))
+        m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", line)
+        if m2:
+            stack, st, ld = (int(x) for x in m2.groups())
+        m3 = re.search(r"Used (\d+) registers", line)
+        if m3:
+            regs = int(m3.group(1))
+        out[key] = (regs, stack, st, ld)
+    return out
+
+
+def wide_cases(model, reads, dev):
+    """The inputs of every frag_wide check: one component band of the
+    bench graph at its full width with a 64-row read prefix (S = 2), the
+    seedless tiles of the bench graph for three restart offsets of a read
+    (S = 8), and the hard batch (pad slots, length-0 seed slots, slots
+    past 32 columns, in-edges from pad slots, from beyond B and from the
+    same or a higher level, levels past n_levels; int8 pointers at B = 64)
+    with and without full_start.  Returns [(label, args, kw)]."""
+    from graphchainer_torch.align.seedless import FullstartScanner
+    from graphchainer_torch.models.optimal import OptimalAlignerModel
+    opt = OptimalAlignerModel(model.g, model.index, gx=model.gx, device=dev)
+    scan = FullstartScanner(model.g, model.gx, device=dev)
+    read = reads[0][1]
+    comp = opt.component_inputs(read[:64], 0)
+    tiles = scan.scan_inputs(read, offsets=(0, 1000, 2000))[:2]
+    return [("optimal component, a 64-row prefix", *comp),
+            ("seedless tiles, 3 offsets", *tiles),
+            ("hard batch", *wide_hard_inputs(dev, 3)),
+            ("hard batch, no full_start",
+             *wide_hard_inputs(dev, 5, full_start=False))]
+
+
+def check_wide(label, args, kw, plain, reps=20):
+    """The kernel's outputs against the plain version's (numpy, from
+    wide_plain_job), every output exact, then the kernel timed."""
+    import torch
+    from graphchainer_torch.ops import frag_align
+    got = frag_align.align_fragments(*args, **kw)
+    torch.cuda.synchronize()
+    ref, plain_ms = plain
+    for name in WIDE_FIELDS:
+        a = getattr(got, name)
+        b = torch.from_numpy(ref[name])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"frag_wide ({label}): {name} is "
+                                 f"{a.dtype} {tuple(a.shape)}, the plain "
+                                 f"version's {b.dtype} {tuple(b.shape)}")
+        e = max_abs_diff(a.cpu(), b)
+        if e:
+            raise AssertionError(f"frag_wide ({label}, {wide_shape(args, kw)}"
+                                 f"): {name} differs from the plain version "
+                                 f"(max abs diff {e})")
+    ms = cuda_ms(lambda: frag_align.align_fragments(*args, **kw), reps=reps)
+    bnd = wide_bound(args, kw, got)
+    log(f"frag_wide ({label}) {wide_shape(args, kw)}: exact; kernel "
+        f"{ms:.4f} ms, plain (CPU) {plain_ms:.1f} ms, bound {bnd[0]:.5f} ms "
+        f"by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
+    return dict(label=label, shape=wide_shape(args, kw), ms=ms,
+                plain_ms=plain_ms, bound=bnd, err=0)
+
+
+def ops_cost(gx, aln) -> int:
+    """The edit cost of an alignment's ops along its positions' path
+    sequence, which they must spell out with the whole read."""
+    path = gx.positions_seq(aln["positions"])
+    read = aln["seq"]
+    ri = pi = cost = 0
+    for op in aln["ops"]:
+        if op in (0, 3):
+            cost += read[ri] != path[pi]
+            ri += 1
+            pi += 1
+        elif op == 1:
+            pi += 1
+            cost += 1
+        else:
+            ri += 1
+            cost += 1
+    if ri != len(read) or pi != len(path):
+        raise AssertionError(f"optimal {aln['name']}: the ops spell "
+                             f"{ri}/{len(read)} read and {pi}/{len(path)} "
+                             "path bases")
+    return int(cost)
+
+
+def optimal_job(i, graph_bp, n_reads, read_len, device="cuda"):
+    """Read i of the bench workload through OptimalAlignerModel on the
+    card, in a process of its own (its exact traceback is host numpy of
+    a minute or more); the launch counts set to 0 just before and read
+    just after."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from graphchainer_torch.models.optimal import OptimalAlignerModel
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.utils import timers
+    from graphchainer_torch.workload import bench_workload
+    g, _, index, _, reads, _ = bench_workload(graph_bp, n_reads, read_len)
+    name, seq = reads[i]
+    model = OptimalAlignerModel(g, index, device=device)
+    model.gx.device_tables(model.device)
+    if model.device.type == "cuda":
+        _cuda.lib()
+        torch.cuda.synchronize()
+    timers.reset()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    aln = model.align_batch([(name, seq)])[0]
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = timers.snapshot()
+    return dict(name=name, seq=seq, score=int(aln.score),
+                positions=np.asarray(aln.positions),
+                ops=None if aln.ops is None else np.asarray(aln.ops),
+                launches=_cuda.launches(), wall=wall,
+                dp_s=snap.get("optimal_dp", (0.0, 0))[0],
+                traceback_s=snap.get("optimal_traceback", (0.0, 0))[0])
+
+
+def check_optimal(gx, results):
+    """Every read aligned, its kernel score the cost of the oracle's exact
+    traceback (the oracle's checkpointed-DP minimum over the component the
+    kernel chose), frag_wide launched in every run."""
+    for r in results:
+        if r["ops"] is None or not len(r["positions"]):
+            raise AssertionError(f"optimal {r['name']}: no alignment")
+        cost = ops_cost(gx, r)
+        if cost != r["score"]:
+            raise AssertionError(f"optimal {r['name']}: kernel score "
+                                 f"{r['score']} != the oracle's traceback "
+                                 f"cost {cost}")
+        if r["launches"]["frag_wide"] <= 0:
+            raise AssertionError(f"optimal {r['name']}: frag_wide never "
+                                 "launched")
+        log(f"optimal {r['name']} ({len(r['seq'])} bp): score {r['score']} "
+            f"== the oracle's exact minimum; {r['wall']:.2f} s, of which "
+            f"the kernel stage {r['dp_s']:.3f} s ({r['launches']['frag_wide']}"
+            f" launches) and the host traceback {r['traceback_s']:.2f} s")
+    return dict(reads=len(results),
+                launches=sum(r["launches"]["frag_wide"] for r in results),
+                dp_s=[round(r["dp_s"], 4) for r in results],
+                traceback_s=[round(r["traceback_s"], 3) for r in results])
+
+
+def run_seedless(model, reads, dev):
+    """8 bench reads with every 8th base substituted (no minimizer
+    survives) through GraphAlignerModel(seedless_dp=True) on the card,
+    without and with a restart stride, the launch counts of each run set
+    to 0 just before it and read just after: every read aligned."""
+    import torch
+    from graphchainer_torch.index.minimizer import get_seeds
+    from graphchainer_torch.models.aligner import (AlignerConfig,
+                                                   GraphAlignerModel)
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import nw_edit_distance, poisoned
+    bad = [(n, poisoned(s)) for n, s in reads[:8]]
+    seeded = sum(bool(get_seeds(model.index, s, -1)) for _, s in bad)
+    out = {}
+    for stride in (0, 1000):
+        ga = GraphAlignerModel(model.g, model.index,
+                               AlignerConfig(seedless_dp=True,
+                                             dp_restart_stride=stride),
+                               gx=model.gx, device=dev)
+        ga.align_batch(bad[:1])
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        alns = ga.align_batch(bad)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _cuda.launches()
+        eds = []
+        for (name, seq), a in zip(bad, alns):
+            if a.failed:
+                raise AssertionError(f"seedless (stride {stride}): {name} "
+                                     "not aligned")
+            eds.append(nw_edit_distance(seq[a.seq_start:a.seq_end],
+                                        model.gx.positions_seq(a.positions)))
+        for k in ("frag_wide",) + GA_PATH_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"seedless (stride {stride}): kernel {k} "
+                                     "never launched")
+        log(f"seedless DP, stride {stride}: {len(bad)}/{len(bad)} poisoned "
+            f"reads aligned ({seeded} with any minimizer hit) in {wall:.3f} "
+            f"s; edit distances {eds} over spans "
+            f"{[a.seq_end - a.seq_start for a in alns]}; launches "
+            f"{json.dumps(launches)}")
+        out[stride] = dict(launches=launches, seconds=wall, eds=eds)
+    return out
+
+
+def run_outputs(graph_bp, reads, dev):
+    """The bench pass through pipeline.align_reads on the card with GAF,
+    GAM and JSON outputs, the launch counts set to 0 just before and read
+    just after; the GAM read back with io/gam_reader must give the GAF
+    lines' alignments (read names in order, node paths, path offsets and
+    lengths), and the JSON one line each."""
+    import os
+    import tempfile
+    import numpy as np
+    from graphchainer_torch.io.gam_reader import load_gam_alignments
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.pipeline import PipelineParams, align_reads
+    from graphchainer_torch.workload import _write_gfa, build_bench_graph
+    with tempfile.TemporaryDirectory() as td:
+        gfa = os.path.join(td, "bench.gfa")
+        _write_gfa(build_bench_graph(np.random.default_rng(7), graph_bp), gfa)
+        fa = os.path.join(td, "reads.fa")
+        with open(fa, "w") as fh:
+            fh.write("".join(f">{n}\n{s}\n" for n, s in reads))
+        outs = {k: os.path.join(td, f"out.{k}") for k in ("gaf", "gam",
+                                                           "json")}
+        params = PipelineParams(graph_file=gfa, read_files=[fa],
+                                out_gaf=outs["gaf"], out_gam=outs["gam"],
+                                out_json=outs["json"], batch_size=128,
+                                inflight=4, seed_k=15, seed_w=10,
+                                device=str(dev))
+        _cuda.reset_launches()
+        stats = align_reads(params)
+        launches = _cuda.launches()
+        with open(outs["gaf"]) as fh:
+            gaf = [ln.rstrip("\n").split("\t") for ln in fh]
+        with open(outs["json"]) as fh:
+            js = [json.loads(ln) for ln in fh]
+        gam = load_gam_alignments(outs["gam"])
+    for k in MAIN_PATH_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"outputs pass: kernel {k} never launched")
+    if not (len(gam) == len(gaf) == len(js)
+            == stats.reads_with_an_alignment > 0):
+        raise AssertionError(f"outputs pass: {len(gaf)} GAF lines, "
+                             f"{len(gam)} GAM and {len(js)} JSON records, "
+                             f"{stats.reads_with_an_alignment} aligned reads")
+    for a, row, j in zip(gam, gaf, js):
+        path, prev = [], None
+        for m in a.mappings:
+            key = (m.node_key, m.is_reverse)
+            if key != prev:
+                path.append(("<" if m.is_reverse else ">") + m.node_key)
+                prev = key
+        consumed = sum(e.get("from_length", 0) for m in a.mappings
+                       for e in m.edits)
+        want = (row[0], row[5], int(row[7]), int(row[8]) - int(row[7]))
+        got = (a.name, "".join(path), a.mappings[0].offset, consumed)
+        if got != want or j.get("name") != row[0]:
+            raise AssertionError(f"outputs pass: GAM record {got} (JSON "
+                                 f"{j.get('name')}) != GAF line {want}")
+    log(f"outputs pass: {stats.reads} reads through align_reads on {dev}; "
+        f"{len(gaf)} GAF lines == {len(gam)} GAM records read back "
+        f"(names, node paths, offsets, lengths) == {len(js)} JSON lines; "
+        f"launches {json.dumps(launches)}")
+    return dict(records=len(gam), launches=launches)
+
+
+def run_golden100(dev):
+    """The golden100 set (scripts/make_golden100.py) through ChainerModel
+    at the default config on the card, held to tests/test_parity.py's pins
+    (100/100 aligned, >= 95 at or below the reference binary's edit
+    distance, mean delta <= 0.3)."""
+    import tempfile
+    import torch
+    from graphchainer_torch.graph.mpc import build_mpc
+    from graphchainer_torch.index.minimizer import build_index
+    from graphchainer_torch.models.chainer import ChainerModel
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import golden100_workload
+    with tempfile.TemporaryDirectory() as td:
+        _, g, reads = golden100_workload(td)
+    pins = golden("golden100.json")
+    if len(reads) != pins["n_reads"] or any(
+            pins["reads"][n]["len"] != len(s) for n, s in reads):
+        raise AssertionError("golden100: the workload differs from the "
+                             "pinned one")
+    model = ChainerModel(g, build_mpc(g), build_index(g, k=15, w=10),
+                         device=dev)
+    model.align_batch(reads[:4])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    alns = model.align_batch(reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _cuda.launches()
+    for k in MAIN_PATH_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"golden100: kernel {k} never launched")
+    log(f"golden100: {len(reads)} reads in {wall:.3f} s; launches "
+        f"{json.dumps(launches)}")
+    return dict(score_golden("golden100", model.gx, reads, alns, pins, 95,
+                             0.3), launches=launches, seconds=wall)
+
+
 # ---------------------------------------------------------------- phase 3
 def run_pass(model, chunks, workers):
     import numpy as np
@@ -819,6 +1212,20 @@ def main() -> int:
     log(f"workload: {graph_bp} bp graph ({g.n_nodes} split nodes), "
         f"{n_reads} reads of ~{read_len} bp; host build {build_s:.2f} s")
     model = ChainerModel(g, mpc, index, device="cuda")
+
+    # ---- host work of phase 6 in processes of its own, beside phase 2:
+    # the plain version of frag_wide on the CPU (a minute and more at the
+    # bench graph's widths) and optimal mode's reads, whose exact host
+    # traceback takes a minute or more each
+    wide = wide_cases(model, reads, dev)
+    pool = ProcessPoolExecutor(max_workers=6,
+                               mp_context=multiprocessing.get_context("spawn"))
+    wide_plain = [pool.submit(wide_plain_job, *wide_to_numpy(a, kw))
+                  for _, a, kw in wide]
+    opt_futs = [pool.submit(optimal_job, i, graph_bp, n_reads, read_len)
+                for i in range(2 if quick else 4)]
+    log(f"phase 6 host work started: {len(wide)} plain frag_wide runs, "
+        f"{len(opt_futs)} optimal-mode reads")
 
     # ---- 2. kernels vs plain versions on the card
     frag = check_frag_all(model, reads, dev)
@@ -949,6 +1356,35 @@ def main() -> int:
     # ---- 5. GA mode and the rescue on the golden sets
     gold = run_golden(dev)
 
+    # ---- 6. frag_wide, optimal mode, seedless DP, GAM / JSON, golden100
+    wide_checks = [check_wide(label, a, kw, f.result())
+                   for (label, a, kw), f in zip(wide, wide_plain)]
+    from graphchainer_torch.models.optimal import OptimalAlignerModel
+    from graphchainer_torch.ops import frag_align
+    fa, fkw = OptimalAlignerModel(g, index, gx=model.gx,
+                                  device=dev).component_inputs(reads[0][1], 0)
+    full_ms = cuda_ms(lambda: frag_align.align_fragments(*fa, **fkw), reps=3)
+    full_bnd = wide_bound(fa, fkw, frag_align.align_fragments(*fa, **fkw))
+    log(f"frag_wide (optimal component, the whole read) "
+        f"{wide_shape(fa, fkw)}: kernel {full_ms:.3f} ms, bound "
+        f"{full_bnd[0]:.5f} ms by {full_bnd[1]} ({full_bnd[2]} bytes, "
+        f"{full_bnd[3]} operations)")
+    wptx = ptxas_wide(_cuda.ptxas_log())
+    log(f"ptxas, frag_wide_kernel (registers, stack frame, spill stores, "
+        f"spill loads bytes): {wptx}")
+    if len(wptx) != 2:
+        raise AssertionError(f"no ptxas report of both frag_wide_kernel "
+                             f"instantiations: {wptx}")
+    for name, (_, stack, st, ld) in wptx.items():
+        if stack or st or ld:
+            raise AssertionError(f"{name}: {stack} bytes stack frame, "
+                                 f"{st} / {ld} bytes spilled")
+    opt = check_optimal(model.gx, [f.result() for f in opt_futs])
+    pool.shutdown()
+    seedless = run_seedless(model, reads, dev)
+    outputs = run_outputs(graph_bp, reads, dev)
+    g100 = run_golden100(dev)
+
     # No single PyTorch call computes any of these functions (a banded
     # bit-parallel DP over a graph band, its linear form with a dump, a
     # data-dependent backtrace), so library_ms is null throughout.  The
@@ -1030,6 +1466,29 @@ def main() -> int:
               b8["polish_walk"], reads=len(pairs_all),
               ms_by_bw=by_bw("polish_walk", "serial")),
     ]
+    wm = wide_checks[0]
+    kernels.append(entry(
+        "frag_wide", WIDE_SRC, WIDE_TPU, 0, wm["ms"], wm["plain_ms"],
+        wm["bound"], launches=opt["launches"],
+        shape=wm["shape"] + " (a component band of the bench graph, a "
+        "64-row read prefix; plain_ms is the plain version on the CPU)",
+        on_main_path=False,
+        launches_by_path={
+            f"optimal mode, {opt['reads']} bench reads": opt["launches"],
+            "seedless DP, 8 poisoned bench reads": seedless[0]["launches"][
+                "frag_wide"],
+            "seedless DP, stride 1000": seedless[1000]["launches"][
+                "frag_wide"]},
+        ms_by_case={c["label"]: round(c["ms"], 4) for c in wide_checks},
+        plain_ms_by_case={c["label"]: round(c["plain_ms"], 1)
+                          for c in wide_checks},
+        bound_ms_by_case={c["label"]: round(c["bound"][0], 6)
+                          for c in wide_checks},
+        shape_by_case={c["label"]: c["shape"] for c in wide_checks},
+        whole_read=dict(shape=wide_shape(fa, fkw), ms=round(full_ms, 4),
+                        bound_ms=round(full_bnd[0], 6),
+                        bound_by=full_bnd[1]),
+        optimal=opt, ptxas={k: list(v) for k, v in wptx.items()}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@ and GA mode's extension windows).
 
 JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
 (GraphTensors, assemble_batch_cols, FragJob, assemble_batch, CarryJob,
-assemble_carry_batch, pack_row_planes, level_bucket, _warn_truncated;
-JobCols lives in native.py) plus `run_fragments`, which runs
+assemble_carry_batch, pack_row_planes, level_bucket, _warn_truncated,
+backwalk; JobCols lives in native.py) plus `run_fragments`, which runs
 ops/frag_kernel.frag_core over a whole batch on the model's device: the
 node tables stay resident there, the band arrays go up in their host
 types (`fragment_inputs`).
@@ -560,7 +560,8 @@ def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
     return (dev_eq, dev_len) + tuple(band[:6]), kw
 
 
-_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int32): torch.int32}
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+                np.dtype(np.int32): torch.int32}
 
 
 def upload(arrays, device):
@@ -603,3 +604,27 @@ def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
                                carry_in=carry_in)
     return frag_kernel.to_numpy(frag_kernel.frag_core(
         *args, **kw, want_state=want_state, want_xcells=want_xcells))
+
+
+def backwalk(best_in: np.ndarray, band_nodes: np.ndarray, end_slot: int,
+             end_slice: int) -> Optional[list]:
+    """Walk best_in pointers (B, S), int8 or int16, from (end_slot,
+    end_slice) to the seed slot.  Returns the slot sequence [end ... seed]
+    or None on a broken walk."""
+    B, S = best_in.shape
+    slot, s = int(end_slot), int(end_slice)
+    out = [slot]
+    for _ in range(B * S + 4):
+        e = int(best_in[slot, s])
+        if e == frag_align.IN_SEED:
+            return out
+        if e == frag_align.IN_VERT:
+            s -= 1
+            if s < 0:
+                return None
+            continue
+        if e < 0:
+            return None
+        slot = e
+        out.append(slot)
+    return None

@@ -1,12 +1,13 @@
-"""Command-line interface of the PyTorch port (CLC and GA modes).
+"""Command-line interface of the PyTorch port (CLC, GA and optimal modes).
 
   python -m graphchainer_torch -g graph.gfa -f reads.fa -a out.gaf \
-      [--mode ga] [-t N] [--batch-size N] [--verbose] [--device cuda]
+      [--mode ga|optimal] [--seedless-DP] [-t N] [--batch-size N] \
+      [--verbose] [--device cuda]
 
-The flags are graphchainer_tpu's.  Flags of modes and outputs that are
-not ported yet (optimal mode, seedless DP, MEM/file seeds, multi-process
-runs, corrected-read outputs; GAM/JSON outputs) are accepted by the
-parser and rejected with a message that names them.
+The flags are graphchainer_tpu's; -a takes .gaf, .gam and .json, and -g
+.gfa and .vg.  Flags that are not ported yet (MEM/MUM/MXM and file
+seeds, multi-process runs) are accepted by the parser and rejected with a
+message that names them.
 """
 from __future__ import annotations
 
@@ -17,22 +18,18 @@ import sys
 from graphchainer_torch import constants
 from graphchainer_torch.models.chainer import ChainerConfig
 from graphchainer_torch.ops.polish_kernel import BAND_WORDS
-from graphchainer_torch.pipeline import PipelineParams, align_reads
+from graphchainer_torch.graph.simulate import generate_path
+from graphchainer_torch.pipeline import (PipelineParams, align_reads,
+                                         load_graph)
 
 # (dest, flags, argparse kwargs, value meaning "not set")
 _NOT_PORTED = [
-    ("optimal_alignment", ("--optimal-alignment",),
-     dict(action="store_true"), False),
-    ("seedless_dp", ("--seedless-DP",), dict(action="store_true"), False),
     ("seeds_file", ("--seeds-file",), dict(default=None), None),
     ("seeds_mem_count", ("--seeds-mem-count",), dict(type=int, default=0),
      0),
     ("seeds_mum_count", ("--seeds-mum-count",), dict(type=int, default=0),
      0),
     ("num_processes", ("--num-processes",), dict(type=int, default=1), 1),
-    ("corrected_out", ("--corrected-out",), dict(default=None), None),
-    ("corrected_clipped_out", ("--corrected-clipped-out",),
-     dict(default=None), None),
 ]
 
 # the alignment selection flags and the method each picks
@@ -53,15 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="graphchainer-torch",
         description="Long-read to variation-graph aligner with co-linear "
                     "chaining (PyTorch / CUDA port of graphchainer-tpu, "
-                    "CLC and GA modes)")
+                    "CLC, GA and optimal modes)")
     m = p.add_argument_group("mandatory")
     m.add_argument("-g", "--graph", required=True,
-                   help="input graph (.gfa / .gfa.gz)")
+                   help="input graph (.gfa / .gfa.gz / .vg)")
     m.add_argument("-f", "--reads", action="append", default=[],
                    help="input reads (fasta or fastq, optionally gzipped); "
                         "may repeat")
     m.add_argument("-a", "--alignments-out", action="append", default=[],
-                   help="output file (.gaf)")
+                   help="output file (.gam / .gaf / .json); may repeat")
     clc = p.add_argument_group("colinear chaining")
     clc.add_argument("--colinear-split-len", type=int,
                      default=constants.DEFAULT_COLINEAR_SPLIT_LEN)
@@ -76,9 +73,21 @@ def build_parser() -> argparse.ArgumentParser:
                      default="clc",
                      help="clc = co-linear chaining (default); ga = plain "
                           "whole-read seed-and-extend (GraphAligner-style); "
-                          "optimal is not ported yet")
+                          "optimal = exact minimal edit distance over "
+                          "whole components")
     clc.add_argument("--no-colinear-chaining", action="store_true",
                      help="alias for --mode ga")
+    clc.add_argument("--optimal-alignment", action="store_true",
+                     help="alias for --mode optimal")
+    clc.add_argument("--seedless-DP", dest="seedless_dp",
+                     action="store_true",
+                     help="no seeding: discover alignment starts with a "
+                          "free-start DP scan over the whole graph "
+                          "(implies --mode ga)")
+    clc.add_argument("--DP-restart-stride", dest="dp_restart_stride",
+                     type=int, default=0,
+                     help="with --seedless-DP, re-scan at this read-offset "
+                          "stride to recover coverage after clips")
     clc.add_argument("--global-alignment", action="store_true",
                      help="align the read end to end even where the score "
                           "is poor (GA mode)")
@@ -96,6 +105,16 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--mpc-index", default=None)
     gen.add_argument("--minimizer-index", default=None)
     gen.add_argument("--cigar-match-mismatch", action="store_true")
+    gen.add_argument("--corrected-out", default=None,
+                     help="corrected reads FASTA out")
+    gen.add_argument("--corrected-clipped-out", default=None,
+                     help="corrected clipped reads FASTA out")
+    gen.add_argument("--generate-path", default=None, metavar="PREFIX",
+                     help="generate a random source-to-sink path "
+                          "(PREFIX.fasta + PREFIX.nodes) and exit")
+    gen.add_argument("--generate-path-seed", type=int, default=0)
+    gen.add_argument("--graph-statistics", action="store_true",
+                     help="print graph statistics and exit")
     seed = p.add_argument_group("seeding")
     seed.add_argument("--seeds-minimizer-length", type=int,
                       default=constants.DEFAULT_SEED_MINIMIZER_LENGTH)
@@ -146,8 +165,6 @@ def build_parser() -> argparse.ArgumentParser:
 def params_from_args(args) -> PipelineParams:
     unported = [flags[-1] for dest, flags, _, unset in _NOT_PORTED
                 if getattr(args, dest) != unset]
-    if args.mode == "optimal":
-        unported.insert(0, "--mode optimal")
     if unported:
         raise SystemExit("graphchainer-torch: error: not ported to the "
                          "PyTorch package yet: " + ", ".join(unported))
@@ -215,24 +232,48 @@ def params_from_args(args) -> PipelineParams:
         seed_extend_density=args.seeds_extend_density,
         min_cluster_size=args.seeds_clustersize,
         global_alignment=args.global_alignment,
+        seedless_dp=args.seedless_dp,
+        dp_restart_stride=args.dp_restart_stride,
+        out_corrected=args.corrected_out,
+        out_corrected_clipped=args.corrected_clipped_out,
         **({"inflight": max(args.threads, 1)}
            if args.threads is not None else {}))
     for out in args.alignments_out:
-        if out.endswith(".gaf"):
+        if out.endswith(".gam"):
+            params.out_gam = out
+        elif out.endswith(".gaf"):
             params.out_gaf = out
-        elif out.endswith((".gam", ".json")):
-            raise SystemExit(f"graphchainer-torch: error: {out}: GAM / "
-                             "JSON output is not ported yet (use .gaf)")
+        elif out.endswith(".json"):
+            params.out_json = out
         else:
             raise SystemExit(f"unknown alignment output format: {out} "
-                             "(use .gaf)")
+                             "(use .gam/.gaf/.json)")
     return params
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.reads or not args.alignments_out:
-        print("error: need reads (-f) and an output (-a)", file=sys.stderr)
+    if args.optimal_alignment:
+        args.mode = "optimal"
+    if args.no_colinear_chaining or args.seedless_dp:
+        args.mode = "ga"
+    if args.graph_statistics:
+        g = load_graph(args.graph)
+        for k, v in g.stats().items():
+            print(f"{k}: {v}")
+        return 0
+    if args.generate_path:
+        g = load_graph(args.graph)
+        seq, nodes = generate_path(g, seed=args.generate_path_seed)
+        with open(args.generate_path + ".fasta", "w") as f:
+            f.write(">generated_path\n" + seq + "\n")
+        with open(args.generate_path + ".nodes", "w") as f:
+            f.write(" ".join(str(n) for n in nodes) + "\n")
+        return 0
+    if not args.reads or not (args.alignments_out or args.corrected_out
+                              or args.corrected_clipped_out):
+        print("error: need reads (-f) and an output (-a / --corrected-out)",
+              file=sys.stderr)
         return 1
     stats = align_reads(params_from_args(args))
     print(f"Input reads: {stats.reads} ({stats.bp_in_reads}bp)")

@@ -30,7 +30,8 @@ the CLC rescue) on one torch device: the windows run the carried entry of
 the CUDA fragment kernel (ops/frag_kernel, through anchors.run_fragments)
 and the candidates the CUDA polish kernels, each device stage under a
 lock the model shares with its ChainerModel.  --seedless-DP
-(seedless_dp=True) is not ported.
+(seedless_dp=True) takes its seeds from the full-start scan of
+align/seedless.py (the wide kernel csrc/frag_wide.cu on a CUDA device).
 """
 from __future__ import annotations
 
@@ -121,9 +122,12 @@ class AlignerConfig:
     # src/GraphAlignerBitvectorBanded.h:286)
     carry_margin: int = 32
     # reference --seedless-DP (src/AlignerMain.cpp:77, GraphAligner.h:53):
-    # a free-start DP scan in place of the seeder; not ported (the model
-    # refuses it)
+    # ignore the seeder and discover alignment starts with a free-start
+    # (fullstart) DP scan over the whole graph (align/seedless.py);
+    # --DP-restart-stride re-scans at later read offsets to recover
+    # coverage after clips (GraphAligner.h:60-80)
     seedless_dp: bool = False
+    dp_restart_stride: int = 0
 
     def __post_init__(self):
         if self.precise_clipping is not None:
@@ -234,10 +238,6 @@ class GraphAlignerModel:
         self.g = g
         self.index = index
         self.cfg = cfg or AlignerConfig()
-        if self.cfg.seedless_dp:
-            raise NotImplementedError(
-                "--seedless-DP (seedless_dp=True) is not ported to "
-                "graphchainer_torch yet (ROADMAP.md Queue 1 item 9)")
         self.gx = gx or GraphTensors.build(g)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -248,6 +248,22 @@ class GraphAlignerModel:
         self._device_lock = device_lock or threading.Lock()
         # single-strand graph bp, the E-value database size
         self._db_size = int(np.sum(g.node_len)) // 2
+        self._fullstart = None   # lazy seedless-DP scanner
+
+    def _seedless_seeds(self, seq: str):
+        """Synthetic seeds from the fullstart scan (--seedless-DP)."""
+        from graphchainer_torch.align.seedless import FullstartScanner
+        if self._fullstart is None:
+            self._fullstart = FullstartScanner(self.g, self.gx,
+                                               device=self.device)
+        stride = self.cfg.dp_restart_stride
+        offsets = ((0,) if stride <= 0
+                   else tuple(range(0, max(len(seq) - 32, 1), stride)))
+        # one start per restart offset (the reference runs one fullstart
+        # per restart); a lone offset-0 scan keeps 3 candidate starts
+        with self._device_lock, timers.stage("seedless_scan"):
+            return self._fullstart.scan(seq, offsets=offsets,
+                                        topk=3 if len(offsets) == 1 else 1)
 
     # ------------------------------------------------------------------
     def _init_states(self, ri: int, read_mm: np.ndarray, seed_node: int,
@@ -540,6 +556,11 @@ class GraphAlignerModel:
                for n, s in reads]
         seed_lists = []
         for name, seq in reads:
+            if cfg.seedless_dp:
+                # --seedless-DP: fullstart scan instead of the seeder
+                # (reference AlignOneWay, src/GraphAligner.h:53-83)
+                seed_lists.append(self._seedless_seeds(seq))
+                continue
             seeds = get_seeds(self.index, seq, cfg.seed_density)
             # diagonal clustering picks seeds from the best-supported
             # cluster first (reference OrderSeeds, src/GraphAligner.h:233)
@@ -583,8 +604,12 @@ class GraphAlignerModel:
                     candidates[ri].append((positions, span))
                 if cov > prev_cov:
                     best_span[ri] = span
+                # with --DP-restart-stride every restart offset extends
+                # unconditionally (the reference re-runs fullstart after
+                # each alignment, src/GraphAligner.h:60-80); otherwise
                 # retry the next seed only while the read is under-covered
-                advance = cov < cfg.min_coverage_frac
+                advance = cov < cfg.min_coverage_frac or (
+                    cfg.seedless_dp and cfg.dp_restart_stride > 0)
                 if advance and si + 1 < len(seed_lists[ri]):
                     next_pending.append((ri, si + 1))
             pending = next_pending

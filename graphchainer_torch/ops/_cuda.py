@@ -25,7 +25,8 @@ from graphchainer_torch import _buildlib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("frag_core.cu", "polish_core.cu", "polish_walk.cu")
+SOURCES = ("frag_core.cu", "frag_wide.cu", "polish_core.cu",
+           "polish_walk.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,7 +36,8 @@ build_seconds = None        # wall time of the build that produced the
                             # loaded library (0.0 when it was already built)
 
 _count_lock = threading.Lock()
-_launches = {"frag_core": 0, "frag_core_carried": 0, "polish_core": 0,
+_launches = {"frag_core": 0, "frag_core_carried": 0, "frag_wide": 0,
+             "polish_core": 0,
              "polish_walk": 0, "polish_core_serial": 0,
              "polish_walk_serial": 0}
 
@@ -121,6 +123,8 @@ def lib() -> ctypes.CDLL:
         L.frag_core_carried_launch.restype = I
         L.frag_core_carried_launch.argtypes = ([P] * 11 + [I] * 7
                                                + [P] * 10 + [P])
+        L.frag_wide_launch.restype = I
+        L.frag_wide_launch.argtypes = [P] * 9 + [I] * 8 + [P] * 8
         for fn in (L.polish_core_launch, L.polish_core_serial_launch):
             fn.restype = I
             fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]

@@ -1,8 +1,12 @@
 """Banded fragment-to-graph DP (the CLC fragment stage and GA mode's
 extension windows) in torch.
 
-Port of graphchainer_tpu/ops/frag_align.py: the lane-major core
-`_frag_core_t` as plain torch, with its fresh windows (the CLC path) and
+Port of graphchainer_tpu/ops/frag_align.py: the F-major
+`align_fragments` (optimal mode and seedless DP: whole-component bands
+up to 4096 slots, free start at every slot and column with
+`full_start`), which runs ops/frag_kernel.frag_wide_cuda on a CUDA tensor
+and its plain version `align_fragments_plain` on a CPU tensor; the
+lane-major core `_frag_core_t` as plain torch, with its fresh windows (the CLC path) and
 its carried ones (GA mode: a boundary state carried in from the window
 before, the state of the last slice out, the best X-score cell),
 `lane_major`, which gathers each band slot's Eq planes and length from
@@ -25,7 +29,7 @@ import torch
 
 from graphchainer_torch.ops.myers import (MASK32, ONES, W, _ABOVE,
                                           advance_word, popcount32,
-                                          source_word, u32)
+                                          source_word, to_i32_bits, u32)
 
 BIG = 1 << 28
 
@@ -53,6 +57,9 @@ class FragResult(NamedTuple):
     xbest: Optional[torch.Tensor] = None    # (F,) its X value
     xslot: Optional[torch.Tensor] = None    # (F,) its slot
     xrow: Optional[torch.Tensor] = None     # (F,) its window-local row
+    # align_fragments: every slot's best end score and its column
+    end_score: Optional[torch.Tensor] = None  # (F, B)
+    end_col: Optional[torch.Tensor] = None    # (F, B)
 
 
 class _MergeAcc:
@@ -364,3 +371,335 @@ def align_fragments_tl(node_eq, node_len, band_nodes, band_in, seed_shift,
     return frag_core(node_eq, node_len, band_nodes, band_in, band_level,
                      seed_shift, req, frag_len, S=n_slices, max_in=max_in,
                      n_levels=n_levels)
+
+
+def align_fragments(node_eq, node_len, band_nodes, band_in, seed_shift, req,
+                    frag_len, n_slices: int, max_in: int, seed_base=None,
+                    full_start: bool = False, band_level=None,
+                    n_levels: Optional[int] = None, carry_in=None,
+                    want_xcells: bool = False) -> FragResult:
+    """The F-major banded DP (graphchainer_tpu.ops.frag_align.
+    align_fragments), with every argument of the JAX function:
+
+    node_eq:    (N2, 4) words of the resident node table (fwd ++ reversed)
+    node_len:   (N2,) node lengths
+    band_nodes: (F, B) slot node ids into the tables, -1 = pad
+    band_in:    (F, B, max_in) in-edge slot ids, -1 = none
+    seed_shift: (F,) columns trimmed from slot 0, or (F, B) from every slot
+    req:        (F, S, 4) read row planes per 32-row slice
+    frag_len:   (F,) fragment rows
+    seed_base:  (F,) score injected at the seed boundary (None: 0)
+    full_start: inject the boundary word at every active slot on slice 0
+                and merge a free-start word into every column of every
+                slice (free alignment start anywhere: optimal mode and
+                seedless DP)
+    band_level: (F, B) topo level per slot, -1 = pad (None: the slot index)
+    n_levels:   level-loop trip count (> the largest level)
+    carry_in:   (ssb, hp, hn) each (F, B): continue a previous call's state
+    want_xcells: also return the best X-score cell
+
+    On a CUDA tensor the kernel runs (ops/frag_kernel.frag_wide_cuda: no
+    carry_in, no want_xcells, no state out; it raises on anything it does
+    not take); on a CPU tensor the plain version."""
+    if band_nodes.is_cuda:
+        if carry_in is not None or want_xcells:
+            raise ValueError("align_fragments on CUDA: the kernel takes no "
+                             "carry_in and no want_xcells")
+        from graphchainer_torch.ops.frag_kernel import frag_wide_cuda
+        if band_level is None:
+            F, B = band_nodes.shape
+            band_level = torch.arange(B, dtype=torch.int32,
+                                      device=band_nodes.device
+                                      ).expand(F, B).contiguous()
+            n_levels = B
+        return frag_wide_cuda(node_eq, node_len, band_nodes, band_in,
+                              band_level, seed_shift, req, frag_len,
+                              seed_base, S=n_slices, max_in=max_in,
+                              n_levels=n_levels, full_start=full_start)
+    return align_fragments_plain(
+        node_eq, node_len, band_nodes, band_in, seed_shift, req, frag_len,
+        n_slices, max_in, seed_base=seed_base, full_start=full_start,
+        band_level=band_level, n_levels=n_levels, carry_in=carry_in,
+        want_xcells=want_xcells)
+
+
+def _expand(vp, vn, sb):
+    """(k,) words -> their boundary score (k,) and 32 row scores (k, 32)."""
+    above = _ABOVE_T.to(vp.device)
+    rows = (sb[:, None] - popcount32(vp[:, None] & above)
+            + popcount32(vn[:, None] & above))
+    return sb - popcount32(vp) + popcount32(vn), rows
+
+
+def _pack(before, rows):
+    """Rebuild (vp, vn, sb) from a boundary score and 32 row scores."""
+    prev = torch.cat([before[:, None], rows[:, :-1]], dim=1)
+    d = rows - prev
+    bit = _BITVAL_T.to(d.device)
+    return (((d == 1).to(torch.int64) * bit).sum(dim=1),
+            ((d == -1).to(torch.int64) * bit).sum(dim=1), rows[:, W - 1])
+
+
+def align_fragments_plain(node_eq, node_len, band_nodes, band_in, seed_shift,
+                          req, frag_len, n_slices: int, max_in: int,
+                          seed_base=None, full_start: bool = False,
+                          band_level=None, n_levels: Optional[int] = None,
+                          carry_in=None, want_xcells: bool = False,
+                          want_state: bool = True) -> FragResult:
+    """align_fragments in plain torch, on tensors of any device.  The
+    slots of one level are gathered and advanced together (the JAX
+    function advances every slot and commits a level's: the same values);
+    a free-start merge that cannot change a word is skipped (its word lies
+    on or above the column's on every row).  Returns int32 best_score /
+    best_slot / best_col (F,), best_in (F, B, S) int8 for B <= 127 and
+    int16 above, int32 end_score / end_col (F, B), the last slice's state
+    out_ssb (int32) and out_hp / out_hn (uint32 bits in int32) (F, B)
+    (want_state=False: none, and the columns past each slot's length,
+    which reach only them, are skipped), and with want_xcells int32 xbest
+    / xslot / xrow (F,)."""
+    F, B = band_nodes.shape
+    S = n_slices
+    dev = band_nodes.device
+    i64 = torch.int64
+    N = F * B
+    N2 = node_eq.shape[0]
+    ptr_dtype = torch.int8 if B <= 127 else torch.int16
+    if band_level is None:
+        band_level = torch.arange(B, device=dev).expand(F, B)
+        n_levels = B
+    assert n_levels is not None
+
+    ids = band_nodes.to(i64)
+    idc = ids.clamp(0, N2 - 1)
+    slot_eq = u32(node_eq[idc])                              # (F, B, 4)
+    slot_len = torch.where(ids >= 0, node_len[idc].to(i64), 0)
+    if seed_shift.dim() == 2:
+        shift = seed_shift.to(i64)
+    else:
+        shift = torch.zeros((F, B), dtype=i64, device=dev)
+        shift[:, 0] = seed_shift.to(i64)
+    slot_eq = (slot_eq >> (shift & 31)[..., None]).reshape(N, 4)
+    slot_len = (slot_len - shift).reshape(N)
+    active = slot_len > 0
+    fo = torch.arange(N, device=dev) // B                   # fragment of slot
+    is_seed = torch.arange(N, device=dev) % B == 0
+    lvl = band_level.to(i64).reshape(N)
+    bi = band_in.to(i64).reshape(N, max_in)
+    bi_flat = fo[:, None] * B + bi.clamp(0, B - 1)
+    req64 = u32(req)                                         # (F, S, 4)
+    flen = frag_len.to(i64)
+    end_slice = torch.div(flen - 1, W, rounding_mode="floor")[fo]
+    er = torch.remainder(flen - 1, W)
+    erm = torch.where(er < W - 1, (ONES << (er + 1)) & MASK32,
+                      torch.zeros_like(er))[fo]
+    base = (torch.zeros(F, dtype=i64, device=dev) if seed_base is None
+            else seed_base.to(i64))[fo]
+    colv = torch.arange(W, device=dev)
+
+    def full(v):
+        return torch.full((N,), v, dtype=i64, device=dev)
+
+    evp, evn, esb = full(0), full(0), full(BIG)
+    carried = carry_in is not None
+    if carried:
+        ssb = carry_in[0].to(i64).reshape(N)
+        hp = u32(carry_in[1]).reshape(N)
+        hn = u32(carry_in[2]).reshape(N)
+    else:
+        ssb, hp, hn = full(BIG), full(0), full(0)
+    end_score, end_col = full(BIG), full(0)
+    best_in = torch.full((N, S), IN_NONE, dtype=i64, device=dev)
+    xbest = torch.full((F,), -BIG, dtype=i64, device=dev)
+    xslot = torch.zeros(F, dtype=i64, device=dev)
+    xrow = torch.zeros(F, dtype=i64, device=dev)
+    levels = [torch.nonzero(lvl == lv).flatten() for lv in range(n_levels)]
+    levels = [sel for sel in levels if sel.numel()]
+
+    for s in range(S):
+        prev_exists = s > 0 or carried
+        n_ssb, n_hp, n_hn = full(BIG), full(0), full(0)
+        bin_s = full(IN_NONE)
+        for sel in levels:
+            k = sel.numel()
+            ln, act, seed = slot_len[sel], active[sel], is_seed[sel]
+            rq = req64[fo[sel], s]                           # (k, 4)
+            bits = (slot_eq[sel][:, :, None] >> colv) & 1    # (k, 4, 32)
+            eqs = (rq[:, :, None] * bits).sum(dim=1)         # (k, 32)
+            eq0 = eqs[:, 0]
+            b0 = base[sel]
+            before = torch.full((k,), BIG, dtype=i64, device=dev)
+            rows = torch.full((k, W), BIG, dtype=i64, device=dev)
+            csb = torch.full((k,), BIG, dtype=i64, device=dev)
+            cbest = torch.full((k,), IN_NONE, dtype=i64, device=dev)
+
+            def add(wvp, wvn, wsb, valid, code, before=before, rows=rows):
+                nonlocal csb, cbest
+                wvp = torch.where(valid, wvp, ONES)
+                wvn = torch.where(valid, wvn, 0)
+                wsb = torch.where(valid, wsb, BIG)
+                b_, r_ = _expand(wvp, wvn, wsb)
+                torch.minimum(before, b_, out=before)
+                torch.minimum(rows, r_, out=rows)
+                better = wsb < csb
+                cbest = torch.where(valid & better, code, cbest)
+                csb = torch.minimum(csb, wsb)
+
+            pssb = ssb[sel]
+            if not prev_exists:
+                valid = (act | seed) if full_start else seed
+                svp, svn, ssb_ = source_word(b0)
+                avp, avn, asb, _ = advance_word(svp, svn, ssb_, eq0, 1)
+                add(avp, avn, asb, valid, IN_SEED)
+            else:
+                vvp, vvn, vsb = source_word(pssb)
+                add(vvp, vvn, vsb, act & (pssb < BIG), IN_VERT)
+            for e in range(max_in):
+                u = bi[sel, e]
+                uf = bi_flat[sel, e]
+                uvp, uvn, usb = evp[uf], evn[uf], esb[uf]
+                valid = (u >= 0) & act & (usb < BIG)
+                if prev_exists:
+                    ubs = usb - popcount32(uvp) + popcount32(uvn)
+                    hin = torch.where(pssb >= BIG, 1,
+                                      (pssb - ubs).clamp(-1, 1))
+                else:
+                    hin = 1
+                avp, avn, asb, _ = advance_word(uvp, uvn, usb, eq0, hin)
+                add(avp, avn, asb, valid, u)
+            cvp, cvn, cs = _pack(before, rows)
+            cbefore = before
+            if not prev_exists:
+                len0 = seed & (ln == 0)
+                svp, svn, ssb_ = source_word(b0)
+                cvp = torch.where(len0, svp, cvp)
+                cvn = torch.where(len0, svn, cvn)
+                cs = torch.where(len0, ssb_, cs)
+                cbefore = torch.where(len0, b0, cbefore)
+                cbest = torch.where(len0, IN_SEED, cbest)
+            col0_sb = cs
+
+            at_end = end_slice[sel] == s
+            # columns past a slot's length reach no output but the state
+            # bits of the last slice: without want_state they are skipped
+            ncol = W - 1 if want_state else int(
+                ln.clamp(1, W).max()) - 1
+            if prev_exists:
+                hbits = torch.stack([hp[sel], hn[sel]])[:, :, None] >> colv
+                hpos, hneg = hbits[0] & 1, hbits[1] & 1      # (k, 32)
+            else:
+                hpos, hneg = 1, 0
+            if full_start:
+                fbase = b0 + W * s
+                fvp, fvn, fsb = source_word(fbase)
+                fvp, fvn, fsb, _ = advance_word(
+                    fvp[:, None], fvn[:, None], fsb[:, None], eqs,
+                    0 if s == 0 else 1)                      # (k, 32)
+            wvp, wvn, wsb, wb = cvp, cvn, cs, cbefore
+            words = [(wvp, wvn, wsb)]
+            houts = []
+            for c in range(1, ncol + 1):
+                hp_c = hpos if isinstance(hpos, int) else hpos[:, c]
+                hn_c = hneg if isinstance(hneg, int) else hneg[:, c]
+                eq = eqs[:, c] | hn_c
+                xv = eq | wvn
+                xh = ((((eq & wvp) + wvp) & MASK32) ^ wvp) | eq
+                ph = wvn | (~(xh | wvp) & MASK32)
+                mh = wvp & xh
+                op, on = ph >> 31, mh >> 31
+                houts.append((op, on))
+                ph = ((ph << 1) & MASK32) | hp_c
+                mh = ((mh << 1) & MASK32) | hn_c
+                wvp, wvn = mh | (~(xv | ph) & MASK32), ph & xv
+                wsb = wsb + op - on
+                wb = wb + hp_c - hn_c
+                if full_start:
+                    fvalid = act & (c < ln)
+                    # the free-start word lies on or above the column's
+                    # word on every row unless the column's boundary score
+                    # reaches its (or the invalid word's) bound
+                    need = wb >= torch.where(fvalid, fbase, BIG - W + 1)
+                    if bool(need.any()):
+                        m_vp = torch.where(fvalid, fvp[:, c], ONES)
+                        m_vn = torch.where(fvalid, fvn[:, c], 0)
+                        m_sb = torch.where(fvalid, fsb[:, c], BIG)
+                        b1, r1 = _expand(wvp, wvn, wsb)
+                        b2, r2 = _expand(m_vp, m_vn, m_sb)
+                        nb = torch.minimum(b1, b2)
+                        pvp, pvn, psb = _pack(nb, torch.minimum(r1, r2))
+                        wvp = torch.where(need, pvp, wvp)
+                        wvn = torch.where(need, pvn, wvn)
+                        wsb = torch.where(need, psb, wsb)
+                        wb = torch.where(need, nb, wb)
+                words.append((wvp, wvn, wsb))
+            if houts:
+                ho = torch.stack([torch.stack(h, 1) for h in zip(*houts)])
+                ho = ho << colv[1:ncol + 1]                  # (2, k, ncol)
+                hp_acc, hn_acc = ho[0].sum(1), ho[1].sum(1)
+            else:
+                hp_acc = hn_acc = torch.zeros(k, dtype=i64, device=dev)
+            wv = [torch.stack(x, 1) for x in zip(*words)]    # (k, ncol+1)
+            # the slot's end word: column len - 1 (column 0 for len <= 1;
+            # none for a slot longer than 32 columns)
+            pick = (ln - 1).clamp(0, ncol)[:, None]
+            long_ = ln > W
+            evp_c = torch.where(long_, 0, wv[0].gather(1, pick)[:, 0])
+            evn_c = torch.where(long_, 0, wv[1].gather(1, pick)[:, 0])
+            esb_c = torch.where(long_, BIG, wv[2].gather(1, pick)[:, 0])
+            esb_c = torch.where(act | (seed & (ln == 0)), esb_c, BIG)
+            # the best end-row cell: column 0 (an active slot), then the
+            # first strictly lower column inside the slot
+            if bool(at_end.any()):
+                m = erm[sel][:, None]
+                sr = wv[2] - popcount32(wv[0] & m) + popcount32(wv[1] & m)
+                inside = colv[:ncol + 1][None, :] < ln[:, None]
+                inside[:, 0] = True
+                sr = torch.where(inside, sr, 4 * BIG)
+                best_sc = sr.min(dim=1).values
+                best_cl = (sr == best_sc[:, None]).to(torch.int8).argmax(1)
+                ok = at_end & act
+                best_sc = torch.where(ok, best_sc, BIG)
+                best_cl = torch.where(ok, best_cl, 0)
+            else:
+                best_sc = torch.full((k,), BIG, dtype=i64, device=dev)
+                best_cl = torch.zeros(k, dtype=i64, device=dev)
+
+            evp[sel], evn[sel], esb[sel] = evp_c, evn_c, esb_c
+            n_ssb[sel], n_hp[sel], n_hn[sel] = col0_sb, hp_acc, hn_acc
+            improved = best_sc < end_score[sel]
+            end_score[sel] = torch.where(improved, best_sc, end_score[sel])
+            end_col[sel] = torch.where(improved, best_cl, end_col[sel])
+            bin_s[sel] = cbest
+        ssb, hp, hn = n_ssb, n_hp, n_hn
+        best_in[:, s] = bin_s
+        if want_xcells:
+            _, srow = _expand(evp, evn, esb)                 # (N, 32)
+            grow = s * W + colv
+            ok = ((active & (esb < BIG))[:, None]
+                  & (grow[None, :] < flen[fo][:, None]))
+            xs = torch.where(ok, (grow + 1)[None, :] - 5 * srow, -BIG)
+            xf = xs.reshape(F, B * W)
+            val = xf.max(dim=1).values
+            arg = (xf == val[:, None]).to(torch.int8).argmax(dim=1)
+            better = val > xbest
+            xbest = torch.where(better, val, xbest)
+            xslot = torch.where(better, arg // W, xslot)
+            xrow = torch.where(better, s * W + arg % W, xrow)
+
+    es = end_score.reshape(F, B)
+    ec = end_col.reshape(F, B)
+    best_score = es.min(dim=1).values
+    best_slot = (es == best_score[:, None]).to(torch.int8).argmax(dim=1)
+    best_col = ec.gather(1, best_slot[:, None])[:, 0]
+    i32 = torch.int32
+    out = dict(best_score=best_score.to(i32), best_slot=best_slot.to(i32),
+               best_col=best_col.to(i32),
+               best_in=best_in.reshape(F, B, S).to(ptr_dtype),
+               end_score=es.to(i32), end_col=ec.to(i32))
+    if want_state:
+        out.update(out_ssb=ssb.reshape(F, B).to(i32),
+                   out_hp=to_i32_bits(hp.reshape(F, B)),
+                   out_hn=to_i32_bits(hn.reshape(F, B)))
+    if want_xcells:
+        out.update(xbest=xbest.to(i32), xslot=xslot.to(i32),
+                   xrow=xrow.to(i32))
+    return FragResult(**out)

@@ -1,4 +1,5 @@
-"""Wrapper of the fragment DP kernel (csrc/frag_core.cu).
+"""Wrappers of the fragment DP kernels (csrc/frag_core.cu,
+csrc/frag_wide.cu).
 
 frag_core() takes the fragment-major batch of the band build in its host
 types and returns a FragResult (int32 best_score / best_slot / best_col
@@ -7,12 +8,19 @@ want_state the int32 out_ssb and the bits of out_hp / out_hn (F, B), with
 want_xcells the int32 xbest / xslot / xrow (F,)).  A CPU tensor runs the
 plain version, frag_align.lane_major + frag_align._frag_core_t; a CUDA
 tensor launches the kernel, which does the slot gather and the seed trims
-itself.  Its fresh entry (the CLC fragment stage) replaces the Pallas
-kernel graphchainer_tpu/ops/pallas_frag.py::frag_core_pallas; its carried
-entry (GA mode's windows: per-slot trims, a carried boundary state, the
-state and the best X cell out) replaces the XLA-only variants of the
-same DP that JAX keeps off that kernel (frag_align._frag_core_t with
-carried / want_state / want_xcells, and the F-major align_fragments).
+itself.  Its fresh entry (frag_core_cuda, the CLC fragment stage)
+replaces the Pallas kernel graphchainer_tpu/ops/pallas_frag.py::
+frag_core_pallas; its carried entry (frag_core_carried_cuda, GA mode's
+windows: per-slot trims, a carried boundary state, the state and the best
+X cell out) replaces the XLA-only variants of the lane-major core that
+JAX keeps off that kernel (frag_align._frag_core_t with carried /
+want_state / want_xcells).
+
+frag_wide_cuda() is the kernel of frag_align.align_fragments on a CUDA
+tensor: the F-major DP of optimal mode and seedless DP (bands of up to
+4096 slots, int16 in-edges, full_start), which replaces the XLA-only
+graphchainer_tpu/ops/frag_align.py::align_fragments; its plain version is
+frag_align.align_fragments_plain.
 """
 from __future__ import annotations
 
@@ -23,7 +31,9 @@ from graphchainer_torch.ops import _cuda
 from graphchainer_torch.ops import frag_align as _fa
 from graphchainer_torch.ops.myers import to_i32_bits
 
-MAX_B = 128       # band slots the kernel takes (band_in is int8)
+MAX_B = 128        # band slots of frag_core's entries (band_in is int8)
+MAX_WIDE_B = 4096  # band slots (and levels) of frag_wide
+WIDE_THREADS = 128  # threads of a frag_wide block (its slices a round)
 
 
 def frag_core(node_eq, node_len, band_nodes, band_in, band_level,
@@ -233,3 +243,72 @@ def to_numpy(res: _fa.FragResult) -> _fa.FragResult:
 
 
 _NP_DTYPE = {torch.int32: "int32", torch.int8: "int8"}
+
+
+def wide_buffers(S: int) -> int:
+    """The end-word buffers of a frag_wide fragment: a slice wavefront
+    keeps one per slice of a round, a level-by-level run two."""
+    return max(2, min(S, WIDE_THREADS))
+
+
+def frag_wide_cuda(node_eq, node_len, band_nodes, band_in, band_level,
+                   seed_shift, req, rows, seed_base=None, *, S: int,
+                   max_in: int, n_levels: int,
+                   full_start: bool) -> _fa.FragResult:
+    """Launch csrc/frag_wide.cu on CUDA tensors: node_eq uint32 bits in
+    int32 (N2, 4), node_len int32 (N2,), band_nodes int32 (F, B), band_in
+    int16 (F, B, max_in), band_level int32 (F, B), seed_shift int32 (F,),
+    req uint32 bits in int32 (F, S, 4), rows int32 (F,), seed_base int32
+    (F,) or None (0); B and n_levels at most MAX_WIDE_B.  Returns int32
+    best_score / best_slot / best_col (F,), best_in (F, B, S) int8 for
+    B <= 127 and int16 above, int32 end_score / end_col (F, B)."""
+    F, B = band_nodes.shape
+    N2 = node_eq.shape[0]
+    if not 1 <= B <= MAX_WIDE_B:
+        raise ValueError(f"frag_wide: B={B} outside 1..{MAX_WIDE_B}")
+    if not 1 <= n_levels <= MAX_WIDE_B:
+        raise ValueError(f"frag_wide: n_levels={n_levels} outside "
+                         f"1..{MAX_WIDE_B}")
+    if S < 1 or max_in < 0 or N2 < 1:
+        raise ValueError(f"frag_wide: bad S={S} / max_in={max_in} / N2={N2}")
+    specs = [("node_eq", node_eq, (N2, 4), None),
+             ("node_len", node_len, (N2,), None),
+             ("band_nodes", band_nodes, (F, B), None),
+             ("band_in", band_in, (F, B, max_in), torch.int16),
+             ("band_level", band_level, (F, B), None),
+             ("seed_shift", seed_shift, (F,), None),
+             ("req", req, (F, S, 4), None),
+             ("rows", rows, (F,), None)]
+    if seed_base is not None:
+        specs.append(("seed_base", seed_base, (F,), None))
+    _cuda.require_cuda_all(specs)
+    for name, t in (("node_eq", node_eq), ("req", req)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"frag_wide: {name} is not 16-byte aligned")
+    dev = band_nodes.device
+    ptr = torch.int8 if B <= 127 else torch.int16
+    i32 = torch.int32
+    out = _fa.FragResult(
+        best_score=torch.empty(F, dtype=i32, device=dev),
+        best_slot=torch.empty(F, dtype=i32, device=dev),
+        best_col=torch.empty(F, dtype=i32, device=dev),
+        best_in=torch.empty((F, B, S), dtype=ptr, device=dev),
+        end_score=torch.empty((F, B), dtype=i32, device=dev),
+        end_col=torch.empty((F, B), dtype=i32, device=dev))
+    if F:
+        T = wide_buffers(S)
+        scratch = torch.empty((F, T, B, 4), dtype=i32, device=dev)
+        L = _cuda.lib()
+        rc = L.frag_wide_launch(
+            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
+            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
+            req.data_ptr(), rows.data_ptr(),
+            0 if seed_base is None else seed_base.data_ptr(),
+            N2, F, B, S, max_in, n_levels, int(full_start), T,
+            scratch.data_ptr(), out.best_score.data_ptr(),
+            out.best_slot.data_ptr(), out.best_col.data_ptr(),
+            out.best_in.data_ptr(), out.end_score.data_ptr(),
+            out.end_col.data_ptr(), _cuda.stream_ptr(band_nodes))
+        _cuda.check(rc, "frag_wide")
+        _cuda.count_launch("frag_wide")
+    return out

@@ -1,11 +1,12 @@
-"""align_reads: graph + indices + batched alignment + GAF writer.
+"""align_reads: graph + indices + batched alignment + writers.
 
-Port of graphchainer_tpu/pipeline.py for CLC mode (ChainerModel) and GA
-mode (--mode ga, GraphAlignerModel): a reader thread streams reads into
-batches, a thread pool runs the model's align_batch on up to `inflight`
-batches at once (host stages of one batch overlap device work of
-another), and the main thread writes GAF lines and sums the statistics in
-numpy.
+Port of graphchainer_tpu/pipeline.py for CLC mode (ChainerModel), GA
+mode (--mode ga, GraphAlignerModel, with --seedless-DP) and optimal mode
+(--mode optimal, OptimalAlignerModel), with GFA or .vg input: a reader
+thread streams reads into batches, a thread pool runs the model's
+align_batch on up to `inflight` batches at once (host stages of one batch
+overlap device work of another), and the main thread writes GAM / GAF /
+JSON alignments and corrected reads and sums the statistics in numpy.
 """
 from __future__ import annotations
 
@@ -25,20 +26,26 @@ from graphchainer_torch.graph.alignment_graph import (AlignmentGraph,
                                                     build_alignment_graph)
 from graphchainer_torch.graph.mpc import MPCIndex, build_mpc
 from graphchainer_torch.index.minimizer import MinimizerIndex, build_index
-from graphchainer_torch.io import fastq
+from graphchainer_torch.io import fastq, gaf, gam
 from graphchainer_torch.io.gfa import load_gfa
 from graphchainer_torch.utils import timers
-from graphchainer_torch.io import gaf
 from graphchainer_torch.models.aligner import (AlignerConfig,
                                                GraphAlignerModel)
-from graphchainer_torch.models.chainer import ChainerConfig, ChainerModel
+from graphchainer_torch.models.chainer import (ChainerConfig, ChainerModel,
+                                               ReadAlignment)
+from graphchainer_torch.models.optimal import (OptimalAlignerModel,
+                                               OptimalConfig)
 
 
 @dataclass
 class PipelineParams:
     graph_file: str = ""
     read_files: List[str] = field(default_factory=list)
+    out_gam: Optional[str] = None
     out_gaf: Optional[str] = None
+    out_json: Optional[str] = None
+    out_corrected: Optional[str] = None
+    out_corrected_clipped: Optional[str] = None
     batch_size: int = 64
     inflight: int = 3          # batches aligned concurrently
     mpc_index_file: Optional[str] = None
@@ -47,7 +54,7 @@ class PipelineParams:
     seed_w: int = 20
     discard_fraction: float = 0.0002
     chainer: ChainerConfig = field(default_factory=ChainerConfig)
-    mode: str = "clc"          # clc (chaining) / ga (extension)
+    mode: str = "clc"          # clc (chaining) / ga (extension) / optimal
     cigar_match_mismatch: bool = False
     device: str = "cuda"
     verbose: bool = False
@@ -63,6 +70,8 @@ class PipelineParams:
     seed_extend_density: float = -1.0         # --seeds-extend-density
     min_cluster_size: int = 0                 # --seeds-clustersize
     global_alignment: bool = False            # --global-alignment (GA)
+    seedless_dp: bool = False                 # --seedless-DP (GA mode)
+    dp_restart_stride: int = 0                # --DP-restart-stride
 
 
 @dataclass
@@ -79,8 +88,11 @@ class AlignmentStats:
 
 
 def load_graph(path: str, allow_cycles: bool = False) -> AlignmentGraph:
-    """GFA input (.gfa / .gfa.gz).  allow_cycles: GA mode aligns cyclic
-    graphs; CLC mode needs a DAG."""
+    """GFA (.gfa / .gfa.gz) or vg protobuf (.vg) input.  allow_cycles: GA
+    mode aligns cyclic graphs; CLC and optimal mode need a DAG."""
+    if path.endswith(".vg"):
+        from graphchainer_torch.io.vg_graph import load_vg
+        return build_alignment_graph(load_vg(path), allow_cycles=allow_cycles)
     return build_alignment_graph(load_gfa(path), allow_cycles=allow_cycles)
 
 
@@ -103,6 +115,19 @@ def get_or_build_minimizer(g: AlignmentGraph,
     if cache:
         idx.save(cache)
     return idx
+
+
+def corrected_read(aln: ReadAlignment, gx,
+                   clipped: bool) -> Optional[str]:
+    """Reference src/ReadCorrection.cpp: replace the aligned span with the
+    path sequence (lowercase = uncorrected context)."""
+    if aln.failed:
+        return None
+    pathseq = gx.positions_seq(aln.positions)
+    if clipped:
+        return pathseq
+    return (aln.seq[:aln.seq_start].lower() + pathseq.upper()
+            + aln.seq[aln.seq_end:].lower())
 
 
 def align_reads(params: PipelineParams) -> AlignmentStats:
@@ -147,8 +172,15 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
                           seed_extend_density=params.seed_extend_density,
                           min_cluster_size=params.min_cluster_size,
                           global_alignment=params.global_alignment,
+                          seedless_dp=params.seedless_dp,
+                          dp_restart_stride=params.dp_restart_stride,
                           **({"band_slots": params.bandwidth}
                              if params.bandwidth else {})),
+            device=params.device)
+    elif params.mode == "optimal":
+        model = OptimalAlignerModel(
+            g, index,
+            OptimalConfig(polish_band_words=params.chainer.polish_band_words),
             device=params.device)
     else:
         mpc = get_or_build_mpc(g, params.mpc_index_file)
@@ -178,7 +210,13 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
             batch_q.put(batch)
         batch_q.put(None)
 
+    gam_w = gam.GamWriter(params.out_gam) if params.out_gam else None
     gaf_f = open(params.out_gaf, "w") if params.out_gaf else None
+    json_f = open(params.out_json, "w") if params.out_json else None
+    corr_f = (open(params.out_corrected, "w")
+              if params.out_corrected else None)
+    clip_f = (open(params.out_corrected_clipped, "w")
+              if params.out_corrected_clipped else None)
     rt = threading.Thread(target=reader, daemon=True)
     rt.start()
     pool = ThreadPoolExecutor(max_workers=max(params.inflight, 1))
@@ -215,11 +253,24 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
             row[4] = 1
             row[5] = len(emitted)
             row[6] = sum(a.seq_end - a.seq_start for a in emitted)
+            if gam_w:
+                for a in emitted:
+                    gam_w.write(gam.alignment_message(g, a))
             if gaf_f:
                 line = gaf.gaf_line(g, aln,
                                     cigar_merge_mm=params.cigar_match_mismatch)
                 if line:
                     gaf_f.write(line + "\n")
+            if json_f:
+                json_f.write(gam.alignment_json(g, aln) + "\n")
+            if corr_f:
+                c = corrected_read(aln, model.gx, clipped=False)
+                if c:
+                    corr_f.write(f">{aln.name}\n{c}\n")
+            if clip_f:
+                c = corrected_read(aln, model.gx, clipped=True)
+                if c:
+                    clip_f.write(f">{aln.name}\n{c}\n")
         if rows:
             totals += np.asarray(rows, dtype=np.int64).sum(axis=0)
 
@@ -236,8 +287,11 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
     finally:
         pool.shutdown()
         rt.join()
-        if gaf_f:
-            gaf_f.close()
+        if gam_w:
+            gam_w.close()
+        for f in (gaf_f, json_f, corr_f, clip_f):
+            if f:
+                f.close()
     (stats.reads, stats.bp_in_reads, stats.seeds_found,
      stats.reads_with_a_seed, stats.reads_with_an_alignment,
      stats.alignments, stats.bp_in_alignments) = (int(x) for x in totals)

@@ -10,14 +10,16 @@ in jax).
 polish_hard_pairs makes the (read, path) pairs that the polish kernels
 must survive, for the CPU tests (small) and the smoke run (full size);
 frag_hard_batch the fragment batch that the fragment DP must survive,
-and frag_hard_carry a carried state for it.
+frag_hard_carry a carried state for it, and frag_wide_hard_batch the same
+batch for the wide fragment DP (optimal mode and seedless DP).
 
-golden_cyclic_workload and golden_badread_workload are copies of
-build_workload of scripts/make_golden_cyclic.py and
-scripts/make_golden_badread.py (which import the JAX package): the
-workloads whose per-read edit distances of the reference binary are
-pinned in tests/data/golden_cyclic.json and golden_badread.json, which
-nw_edit_distance (tests/test_polish.py's scorer) reads against.
+golden_cyclic_workload, golden_badread_workload and golden100_workload
+are copies of build_workload of scripts/make_golden_cyclic.py,
+scripts/make_golden_badread.py and scripts/make_golden100.py (which
+import the JAX package): the workloads whose per-read edit distances of
+the reference binary are pinned in tests/data/golden_cyclic.json,
+golden_badread.json and golden100.json, which nw_edit_distance
+(tests/test_polish.py's scorer) reads against.
 """
 from __future__ import annotations
 
@@ -245,6 +247,29 @@ def _write_gfa(bg: Bigraph, path: str) -> None:
                     f"\t{bg.names[b]}\t{'-' if br else '+'}\t{ov}M\n")
 
 
+def frag_wide_hard_batch(seed: int, F: int = 64, B: int = 64,
+                         max_in: int = 4, S: int = 3):
+    """frag_hard_batch in the types of the wide fragment DP (int16
+    in-edges, int32 levels) with a seed base per fragment and, in every
+    8th fragment, a live slot at a level past n_levels (never processed).
+    Every 16th fragment keeps frag_hard_batch's in-edge from the same or a
+    higher level, which sends it down the kernel's level-by-level path.
+    Returns (node_eq, node_len, band_nodes, band_in, band_level,
+    seed_shift, req, rows, seed_base, n_levels)."""
+    eq, ln, bn, bi, bl, ss, req, rows = frag_hard_batch(seed, F=F, B=B,
+                                                        max_in=max_in, S=S)
+    rng = np.random.default_rng(seed + 1000)
+    bi = bi.astype(np.int16)
+    bl = bl.astype(np.int32)
+    n_levels = int(bl.max()) + 1
+    for f in range(0, F, 8):
+        live = np.nonzero(bl[f] >= 0)[0]
+        if len(live) > 1:
+            bl[f, live[-1]] = n_levels
+    base = rng.integers(0, 8, F).astype(np.int32)
+    return eq, ln, bn, bi, bl, ss, req, rows, base, n_levels
+
+
 def golden_cyclic_workload(tmpdir: str):
     """The cyclic golden set (scripts/make_golden_cyclic.py
     build_workload): three circular plasmids (cycles of ~240 / 500 / 900
@@ -304,6 +329,45 @@ def golden_badread_workload(tmpdir: str):
     reads = simulate_reads(path_seq, 80, 2000, seed=29, error_rate=0.12,
                            len_std=300, profile="badread")
     return gfa, g, reads
+
+
+def golden100_workload(tmpdir: str):
+    """The 100-read golden set (scripts/make_golden100.py build_workload):
+    the bench generator at 30 kbp (default_rng(31)), 88 reads of ~1500 bp
+    at 8% error, 6 error-free reads of 1200 bp and 6 hard reads at 15%
+    error.  Returns (gfa path, AlignmentGraph, reads)."""
+    rng = np.random.default_rng(31)
+    bg = build_bench_graph(rng, 30_000)
+    gfa = os.path.join(tmpdir, "golden.gfa")
+    _write_gfa(bg, gfa)
+    g = build_alignment_graph(load_gfa(gfa))
+    path_seq, _ = generate_path(g, seed=3)
+    reads = simulate_reads(path_seq, 88, 1500, seed=11, error_rate=0.08,
+                           len_std=150)
+    clean_rng = np.random.default_rng(77)
+    for i in range(6):
+        a = int(clean_rng.integers(0, len(path_seq) - 1200))
+        reads.append((f"clean{i}", path_seq[a:a + 1200]))
+    reads += simulate_reads(path_seq, 6, 1500, seed=13, error_rate=0.15,
+                            len_std=150)
+    # simulate_reads names overlap between the two batches: disambiguate
+    seen = {}
+    uniq = []
+    for name, seq in reads:
+        if name in seen:
+            name = f"{name}_hard"
+        seen[name] = True
+        uniq.append((name, seq))
+    return gfa, g, uniq
+
+
+def poisoned(read: str, period: int = 8) -> str:
+    """Every `period`-th base substituted (A->C->G->T->A): no minimizer of
+    k >= 11 survives (tests/test_seedless.py's poisoned)."""
+    out = list(read)
+    for i in range(0, len(out), period):
+        out[i] = {"A": "C", "C": "G", "G": "T", "T": "A"}[out[i]]
+    return "".join(out)
 
 
 def nw_edit_distance(a: str, b: str) -> int:

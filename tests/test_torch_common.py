@@ -229,8 +229,11 @@ _PORT_MODULES = [
     "graphchainer_torch.align.polish", "graphchainer_torch.align.emit",
     "graphchainer_torch.align.correctness", "graphchainer_torch.align.evalue",
     "graphchainer_torch.align.selection", "graphchainer_torch.align.stitch",
-    "graphchainer_torch.models.aligner",
+    "graphchainer_torch.models.aligner", "graphchainer_torch.models.optimal",
+    "graphchainer_torch.align.oracle", "graphchainer_torch.align.seedless",
     "graphchainer_torch.io.gaf", "graphchainer_torch.io.gfa",
+    "graphchainer_torch.io.gam", "graphchainer_torch.io.gam_reader",
+    "graphchainer_torch.io.vg_wire", "graphchainer_torch.io.vg_graph",
     "graphchainer_torch.io.fastq", "graphchainer_torch.native",
     "graphchainer_torch.constants", "graphchainer_torch.convert",
     "graphchainer_torch.utils.bits", "graphchainer_torch.utils.seq",

@@ -298,10 +298,16 @@ def test_rescue_on_a_dense_graph_matches_jax():
 
 
 def test_seedless_dp_is_refused():
+    """The model refused --seedless-DP until it was ported; it takes it
+    now, with the reference's restart stride, and builds its full-start
+    scanner at the first read (the scans and alignments against JAX:
+    tests/test_torch_seedless.py)."""
     g, index, _ = port_world("dag")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TM.GraphAlignerModel(g, index, TM.AlignerConfig(seedless_dp=True),
-                             device="cpu")
+    model = TM.GraphAlignerModel(
+        g, index, TM.AlignerConfig(seedless_dp=True, dp_restart_stride=100),
+        device="cpu")
+    assert model.cfg.seedless_dp and model.cfg.dp_restart_stride == 100
+    assert model._fullstart is None
 
 
 def test_cli_ga_gaf_matches_jax(toy_gfa, tmp_path):

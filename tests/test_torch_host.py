@@ -5,7 +5,9 @@ selection, stitch.path_to_positions, the GA job assembly of
 align/anchors) and the golden workloads of scripts/.  The same GFA text
 and the same numpy-seeded reads go through both packages, and every
 output must be exactly equal.  Also convert.py, which carries the
-reference's state across to the port's classes."""
+reference's state across to the port's classes.  Also the copies of
+optimal mode and its I/O: the exact DAG oracle (align/oracle.py),
+anchors.backwalk, io/vg_wire, io/gam, io/vg_graph and io/gam_reader."""
 import dataclasses
 import gzip
 
@@ -16,6 +18,7 @@ from graphchainer_tpu import constants as JK
 from graphchainer_tpu import native as JN
 from graphchainer_tpu.align import anchors as JA
 from graphchainer_tpu.align import correctness as JCOR
+from graphchainer_tpu.align import oracle as JOR
 from graphchainer_tpu.align import evalue as JEV
 from graphchainer_tpu.align import selection as JSEL
 from graphchainer_tpu.align import stitch as JST
@@ -24,7 +27,11 @@ from graphchainer_tpu.graph import mpc as JMPC
 from graphchainer_tpu.graph import simulate as JSIM
 from graphchainer_tpu.index import minimizer as JMIN
 from graphchainer_tpu.io import fastq as JFQ
+from graphchainer_tpu.io import gam as JGAM
+from graphchainer_tpu.io import gam_reader as JGR
 from graphchainer_tpu.io import gfa as JGFA
+from graphchainer_tpu.io import vg_graph as JVG
+from graphchainer_tpu.io import vg_wire as JVW
 from graphchainer_tpu.models import chainer as JC
 from graphchainer_tpu.utils import bits as JB
 from graphchainer_tpu.utils import seq as JS
@@ -34,6 +41,7 @@ from graphchainer_torch import native as TN
 from graphchainer_torch import workload as TW
 from graphchainer_torch.align import anchors as TA
 from graphchainer_torch.align import correctness as TCOR
+from graphchainer_torch.align import oracle as TOR
 from graphchainer_torch.align import evalue as TEV
 from graphchainer_torch.align import selection as TSEL
 from graphchainer_torch.align import stitch as TST
@@ -42,7 +50,11 @@ from graphchainer_torch.graph import mpc as TMPC
 from graphchainer_torch.graph import simulate as TSIM
 from graphchainer_torch.index import minimizer as TMIN
 from graphchainer_torch.io import fastq as TFQ
+from graphchainer_torch.io import gam as TGAM
+from graphchainer_torch.io import gam_reader as TGR
 from graphchainer_torch.io import gfa as TGFA
+from graphchainer_torch.io import vg_graph as TVG
+from graphchainer_torch.io import vg_wire as TVW
 from graphchainer_torch.models import chainer as TC
 from graphchainer_torch.utils import bits as TB
 from graphchainer_torch.utils import seq as TS
@@ -525,21 +537,24 @@ def test_assemble_ga_windows(world, carried, B):
     assert (ref[0] >= 0).sum() > 20
 
 
-@pytest.mark.parametrize("which", ["cyclic", "badread"])
-def test_golden_workloads(which, tmp_path):
-    """workload's golden sets are scripts/make_golden_*.py's
+@pytest.mark.parametrize("script,which", [
+    ("make_golden_cyclic.py", "golden_cyclic"),
+    ("make_golden_badread.py", "golden_badread"),
+    ("make_golden100.py", "golden100")], ids=["cyclic", "badread", "100"])
+def test_golden_workloads(script, which, tmp_path):
+    """workload's golden sets are scripts/make_golden*.py's
     build_workload, and nw_edit_distance is tests/test_polish.py's."""
     import importlib.util
     import os
     from test_polish import nw_edit_distance
     spec = importlib.util.spec_from_file_location(
-        f"make_golden_{which}", os.path.join(
+        script[:-3], os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "scripts", f"make_golden_{which}.py"))
+            "scripts", script))
     mg = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mg)
     _, jg, jreads = mg.build_workload(str(tmp_path))
-    _, tg, treads = getattr(TW, f"golden_{which}_workload")(str(tmp_path))
+    _, tg, treads = getattr(TW, f"{which}_workload")(str(tmp_path))
     same(jreads, treads)
     same(vars(jg), vars(tg))
     for (_, a), (_, b) in zip(jreads[:2], jreads[2:4]):
@@ -593,3 +608,171 @@ def test_convert(world, what):
         del fields["back_k"]
         with pytest.raises(KeyError, match="back_k"):
             convert.from_reference_mpc(fields)
+
+
+# ------------------------------------------------ optimal mode's copies
+@pytest.mark.parametrize("what", ["char_graph", "dag_dp", "backtrace",
+                                  "ckpt", "backtrace_ckpt",
+                                  "extend_from_seed"])
+def test_oracle(world, what):
+    """align/oracle.py on a component of the world graph and an 80 bp
+    read piece, with free start everywhere (optimal mode's injection)."""
+    read = world["reads"][0][1][100:180]
+    out = {}
+    for key, orc in (("j", JOR), ("t", TOR)):
+        g = world[key]["g"]
+        nodes = np.nonzero(g.comp == 0)[0]
+        cg = orc.build_char_graph(g, nodes)
+        inject = np.zeros(cg.n, dtype=np.int64)
+        if what == "char_graph":
+            out[key] = vars(cg)
+        elif what in ("dag_dp", "backtrace"):
+            D = orc.dag_dp(cg, read, inject)
+            end = int(np.argmin(D[:, len(read)]))
+            out[key] = (D if what == "dag_dp"
+                        else orc.backtrace(cg, D, read, inject, end))
+        elif what in ("ckpt", "backtrace_ckpt"):
+            fin, ckpts, stripe = orc.dag_dp_ckpt(cg, read, inject)
+            out[key] = ((fin, ckpts, stripe) if what == "ckpt"
+                        else orc.backtrace_ckpt(cg, read, inject, ckpts,
+                                                stripe, int(np.argmin(fin))))
+        else:
+            v = int(nodes[len(nodes) // 3])
+            out[key] = orc.extend_from_seed(g, read, v, 0, nodes)[1]
+    same(out["j"], out["t"], what)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16])
+def test_backwalk(dtype):
+    """anchors.backwalk over best_in of either pointer width: walks that
+    reach the seed, leave through a vertical step past slice 0, and break
+    on IN_NONE or a cycle."""
+    rng = np.random.default_rng(11)
+    B, S = (64, 4) if dtype == np.int8 else (300, 4)
+    for trial in range(40):
+        bi = rng.integers(-3, B, (B, S)).astype(dtype)
+        bn = rng.integers(-1, 1000, B).astype(np.int32)
+        slot, s = int(rng.integers(0, B)), int(rng.integers(0, S))
+        same(JA.backwalk(bi, bn, slot, s), TA.backwalk(bi, bn, slot, s),
+             f"trial {trial}")
+
+
+def test_vg_wire():
+    """The protobuf helpers: varints, fields, the vg messages and their
+    decoding."""
+    for n in [0, 1, 127, 128, 300, 2 ** 31, 2 ** 63 - 1]:
+        same(JVW.varint(n), TVW.varint(n))
+    for mod in (JVW, TVW):
+        assert mod.tag(3, 2) == JVW.tag(3, 2)
+    msgs = {}
+    for key, w in (("j", JVW), ("t", TVW)):
+        pos = w.position(12, 3, True, name="s7")
+        m = w.mapping(pos, [w.edit(5, 5), w.edit(1, 1, "A"),
+                            w.edit(0, 2, "GT")], 0)
+        msg = w.alignment("ACGTAACGT", w.path([m, w.mapping(
+            w.position(13, 0, False), [w.edit(4, 4)], 1)], "p"), "read1",
+            score=7, identity=0.875, mapping_quality=60, is_secondary=True)
+        msgs[key] = (msg, w.f_bool(4, True), w.f_double(16, 0.25),
+                     w.f_str(3, "x"), list(w.decode_fields(msg)),
+                     w.to_dict(msg, {1: ("sequence", "str"),
+                                     3: ("name", "str")}))
+    same(msgs["j"], msgs["t"])
+
+
+def _vg_bytes(bg, path_name):
+    """A .vg file (gzip, one varint-framed vg.Graph) of a Bigraph: nodes
+    with ids 1.., its links as edges, one embedded path."""
+    w = JVW
+    graph = b""
+    for i, seq in enumerate(bg.seqs):
+        graph += w.f_msg(1, w.f_str(1, seq) + w.f_varint(3, i + 1))
+    for a, ar, b, br, ov in bg.links:
+        graph += w.f_msg(2, w.f_varint(1, a + 1) + w.f_varint(2, b + 1)
+                         + w.f_bool(3, ar) + w.f_bool(4, br)
+                         + w.f_varint(5, ov))
+    maps = b""
+    for r, i in enumerate(range(0, min(len(bg.seqs), 4))):
+        pos = w.f_varint(1, i + 1) + w.f_bool(4, False)
+        maps += w.f_msg(2, w.f_msg(1, pos) + w.f_varint(5, r + 1))
+    graph += w.f_msg(3, w.f_str(1, path_name) + maps)
+    return w.varint(1) + w.varint(len(graph)) + graph
+
+
+def test_vg_graph(world, tmp_path):
+    """load_vg of a .vg file written with vg_wire: the same Bigraph, and
+    through each package's pipeline.load_graph the same AlignmentGraph."""
+    from graphchainer_tpu import pipeline as JP
+    from graphchainer_torch import pipeline as TP
+    p = str(tmp_path / "g.vg")
+    with gzip.open(p, "wb") as fh:
+        fh.write(_vg_bytes(world["j"]["bg"], "ref"))
+    jb, tb = JVG.load_vg(p), TVG.load_vg(p)
+    same(vars(jb), vars(tb))
+    assert "ref" in tb.paths and len(tb.names) == len(world["j"]["bg"].seqs)
+    same(vars(JP.load_graph(p)), vars(TP.load_graph(p)))
+
+
+def _oracle_alignments(world, RA):
+    """ReadAlignments (of class RA) of the world's reads from the exact
+    oracle on component 0: free start, traceback from the best end, one
+    with a secondary and one failed."""
+    g = world["j"]["g"]
+    nodes = np.nonzero(g.comp == 0)[0]
+    cg = JOR.build_char_graph(g, nodes)
+    inject = np.zeros(cg.n, dtype=np.int64)
+    out = []
+    for i, (name, seq) in enumerate(world["reads"][:3]):
+        piece = seq[50:170]
+        D = JOR.dag_dp(cg, piece, inject)
+        end = int(np.argmin(D[:, len(piece)]))
+        pos, ops = JOR.backtrace(cg, D, piece, inject, end)
+        a = RA(name=name, seq=piece, positions=pos, ops=ops,
+               score=int(D[end, len(piece)]), seq_start=0,
+               seq_end=len(piece))
+        out.append(a)
+    sec = RA(name=out[0].name, seq=out[0].seq,
+             positions=out[1].positions[:40], ops=out[1].ops[:40],
+             score=3, seq_start=5, seq_end=45, is_secondary=True)
+    out[0].secondary = [sec]
+    out.append(RA(name="failed", seq="ACGT", positions=np.zeros((0, 2),
+                                                                np.int64),
+                  ops=None, score=4, seq_end=4))
+    return out
+
+
+@pytest.mark.parametrize("what", ["message", "json", "writer", "reader",
+                                  "seeds"])
+def test_gam(world, tmp_path, what):
+    """io/gam (alignment_message, alignment_json, GamWriter, read_gam) and
+    io/gam_reader on the same alignments."""
+    out = {}
+    for key, RA, gm, gr in (("j", JC.ReadAlignment, JGAM, JGR),
+                            ("t", TC.ReadAlignment, TGAM, TGR)):
+        g = world[key]["g"]
+        alns = [a for a in _oracle_alignments(world, RA) if not a.failed]
+        emitted = [x for a in alns for x in [a] + a.secondary]
+        if what == "message":
+            out[key] = [gm.alignment_message(g, a) for a in emitted]
+        elif what == "json":
+            out[key] = [gm.alignment_json(g, a) for a in alns]
+        else:
+            p = str(tmp_path / f"{key}.gam")
+            w = gm.GamWriter(p, group_size=2)
+            for a in emitted:
+                w.write(gm.alignment_message(g, a))
+            w.close()
+            with gzip.open(p, "rb") as fh:
+                raw = fh.read()
+            if what == "writer":
+                out[key] = (raw, gm.read_gam(p))
+            elif what == "reader":
+                out[key] = [vars(a) | {"mappings": [vars(m) for m in
+                                                    a.mappings]}
+                            for a in gr.load_gam_alignments(p)]
+            else:
+                seeds = gr.load_gam_seeds(
+                    p, {n: i for i, n in enumerate(g.names)})
+                out[key] = {k: [vars(s) for s in v]
+                            for k, v in seeds.items()}
+    same(out["j"], out["t"], what)
+    assert out["t"]

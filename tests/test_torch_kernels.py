@@ -41,8 +41,8 @@ def test_cpu_tensors_run_plain_versions():
     assert torch.equal(walk, ref)
     assert set(_cuda.launches().values()) == {0}
     assert set(_cuda.launches()) == {
-        "frag_core", "frag_core_carried", "polish_core", "polish_walk",
-        "polish_core_serial", "polish_walk_serial"}
+        "frag_core", "frag_core_carried", "frag_wide", "polish_core",
+        "polish_walk", "polish_core_serial", "polish_walk_serial"}
 
 
 @pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
@@ -168,7 +168,8 @@ def test_frag_outputs_come_home_in_one_copy():
     buf = torch.arange(6 * F + 3 * F * B + -(-F * B * S // 4),
                        dtype=torch.int32) - 7
     res = frag_kernel._result_views(buf, F, B, S, True, True)
-    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res)
+    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res
+               if x is not None)
     host = frag_kernel.to_numpy(res)
     assert host.out_hp.dtype == np.uint32 and host.out_hp.shape == (F, B)
     np.testing.assert_array_equal(host.out_hn.view(np.int32),
@@ -427,3 +428,122 @@ def test_split_lookup_is_published_whole():
                 np.testing.assert_array_equal(vals, want[1])
     finally:
         sys.setswitchinterval(old)
+
+
+# ---- frag_wide: the F-major DP of optimal mode and seedless DP ----------
+
+def wide_hard_case(seed=3, full_start=True):
+    """workload.frag_wide_hard_batch as align_fragments' CPU arguments in
+    the kernel's types (args, keyword args)."""
+    from graphchainer_torch.workload import frag_wide_hard_batch
+    eq, ln, bn, bi, bl, ss, req, rows, base, nl = frag_wide_hard_batch(seed)
+    t = torch.from_numpy
+    return ((t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(ss),
+             t(req.view(np.int32)), t(rows)),
+            dict(n_slices=req.shape[1], max_in=bi.shape[2],
+                 full_start=full_start, band_level=t(bl), n_levels=nl,
+                 seed_base=t(base)))
+
+
+def test_align_fragments_cpu_runs_plain_version():
+    """On CPU tensors align_fragments is its plain version and launches
+    nothing; without want_state the plain version skips the columns past
+    each slot's length and gives the same outputs."""
+    _cuda.reset_launches()
+    args, kw = wide_hard_case()
+    got = frag_align.align_fragments(*args, **kw)
+    lean = frag_align.align_fragments_plain(*args, **kw, want_state=False)
+    assert _cuda.launches()["frag_wide"] == 0
+    assert got.best_in.dtype == torch.int8 and got.out_ssb is not None
+    assert lean.out_ssb is None
+    for name in ("best_score", "best_slot", "best_col", "best_in",
+                 "end_score", "end_col"):
+        assert torch.equal(getattr(got, name), getattr(lean, name)), name
+
+
+def test_wide_kernel_call_refuses_what_it_does_not_take():
+    args, kw = wide_hard_case()
+    kw = dict(kw, S=kw.pop("n_slices"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        frag_kernel.frag_wide_cuda(*args[:4], kw.pop("band_level"),
+                                   *args[4:], **kw)
+    args, kw = wide_hard_case()
+    bl = kw.pop("band_level")
+    kw = dict(kw, S=kw.pop("n_slices"))
+    base = (args[0], args[1], args[2], args[3], bl) + args[4:]
+    for i, bad, msg in ((3, args[3].to(torch.int8),
+                         "band_in: expected torch.int16"),
+                        (4, bl.long(), "band_level: expected torch.int32"),
+                        (5, args[4][:, None].expand(-1, 64).contiguous(),
+                         "seed_shift: expected shape"),
+                        (6, args[5][:, :1], "req: expected shape")):
+        with pytest.raises(ValueError, match=msg):
+            frag_kernel.frag_wide_cuda(*base[:i], bad, *base[i + 1:], **kw)
+    with pytest.raises(ValueError, match="n_levels=5000"):
+        frag_kernel.frag_wide_cuda(*base, **dict(kw, n_levels=5000))
+    wide = torch.full((args[2].shape[0], 4097), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="B=4097"):
+        frag_kernel.frag_wide_cuda(*base[:2], wide, *base[3:], **kw)
+
+
+def test_ptxas_wide_reads_nvcc_output():
+    import chip_smoke
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_wide_kernelIaEEvPK5uint4PKiS5_PKs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_wide_kernelIaEEvPK5uint4PKiS5_PKs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_core_kernelILi8EEEvPK4int4' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_core_kernelILi8EEEvPK4int4
+    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_wide_kernelIsEEvPK5uint4PKiS5_PKs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_wide_kernelIsEEvPK5uint4PKiS5_PKs
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+    assert chip_smoke.ptxas_wide(log) == {
+        "frag_wide_kernel<int8_t>": (90, 0, 0, 0),
+        "frag_wide_kernel<int16_t>": (96, 8, 0, 0)}
+
+
+def wide_bench_case(case):
+    """align_fragments' arguments of the bench graph (bench.py's 60 kbp
+    graph) on the CPU: a whole-component band (B = 4096) or the seedless
+    tiles (B = 1024) against a 64-row prefix of a bench read."""
+    from graphchainer_torch.align.seedless import FullstartScanner
+    from graphchainer_torch.models.optimal import OptimalAlignerModel
+    from graphchainer_torch.workload import bench_workload
+    g, _, index, _, reads, _ = bench_workload(60_000, 1, 3000)
+    read = reads[0][1]
+    if case == "B4096":
+        return OptimalAlignerModel(g, index, device="cpu").component_inputs(
+            read[:64], 0)
+    scan = FullstartScanner(g, OptimalAlignerModel(
+        g, index, device="cpu").gx, device="cpu")
+    return scan.scan_inputs(read, offsets=(0,), prefix_rows=64)[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["B64", "B64-no-full-start", "B1024",
+                                  "B4096"])
+def test_frag_wide_matches_plain(cuda_device, case):
+    """The kernel against its plain version (align_fragments_plain on
+    the CPU, on the same inputs), every output exact: the hard batch
+    (int8 pointers, int16 in-edges, pad and length-0 slots, fragments on
+    the level-by-level path) and the bench graph's bands."""
+    if case.startswith("B64"):
+        args, kw = wide_hard_case(full_start=case == "B64")
+    else:
+        args, kw = wide_bench_case(case)
+    ref = frag_align.align_fragments_plain(*args, **kw, want_state=False)
+    _cuda.reset_launches()
+    got = frag_align.align_fragments(
+        *(a.to(cuda_device) for a in args),
+        **{k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+           for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert _cuda.launches()["frag_wide"] == 1
+    for name in ("best_score", "best_slot", "best_col", "best_in",
+                 "end_score", "end_col"):
+        a, b = getattr(got, name).cpu(), getattr(ref, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name

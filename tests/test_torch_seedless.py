@@ -1,0 +1,100 @@
+"""Seedless DP (--seedless-DP, --DP-restart-stride) of the port against
+the JAX package.
+
+tests/test_seedless.py's graph and poisoned reads (every 8th base
+substituted: no minimizer survives) go through graphchainer_tpu and
+graphchainer_torch (plain torch versions on the CPU): the full-start
+scan's synthetic seeds, the seedless GA alignments and the CLI's GAF /
+GAM / JSON / corrected-read bytes must be exactly equal, with and without
+a restart stride.  The configurations are those of tests/test_seedless.py
+and the CLI run repeats the model run's read, so the JAX side compiles
+the shapes of those tests only."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from graphchainer_tpu.align import seedless as JSL
+from graphchainer_tpu.graph.alignment_graph import build_alignment_graph
+from graphchainer_tpu.index.minimizer import build_index, get_seeds
+from graphchainer_tpu.io.gfa import save_gfa
+from graphchainer_tpu.models import aligner as JM
+from graphchainer_torch import convert
+from graphchainer_torch.align import anchors as TA
+from graphchainer_torch.align import seedless as TSL
+from graphchainer_torch.models import aligner as TM
+
+from test_e2e import bubble_graph, simulate
+from test_seedless import poisoned
+from test_torch_common import port_graph, port_index
+from test_torch_optimal import _run_both, _same_alignment
+
+
+_SEEDLESS_CFG = dict(band_slots=24, polish_band_words=4, seedless_dp=True)
+
+
+def _seedless_world(stride):
+    """tests/test_seedless.py's graph, index and poisoned read (of
+    test_seedless_aligns_zero_seed_read) and its configuration, with a
+    restart stride or without: one read, so both runs share the GA
+    windows' compiled shapes."""
+    rng = np.random.default_rng(77)
+    g = build_alignment_graph(bubble_graph(rng))
+    idx = build_index(g, k=13, w=10)
+    read, _ = simulate(rng, g, err=0.0, min_len=400)
+    read = poisoned(read, rng)
+    assert get_seeds(idx, read, -1) == []
+    return g, idx, read, dict(_SEEDLESS_CFG, dp_restart_stride=stride)
+
+
+@pytest.mark.parametrize("stride", [0, 150], ids=["no_stride", "stride150"])
+def test_seedless_scan_matches_jax(stride):
+    g, idx, read, cfg = _seedless_world(stride)
+    offsets = ((0,) if stride <= 0
+               else tuple(range(0, max(len(read) - 32, 1), stride)))
+    assert len(offsets) == (1 if stride <= 0 else 3)
+    topk = 3 if len(offsets) == 1 else 1
+    jm = JM.GraphAlignerModel(g, idx, JM.AlignerConfig(**cfg))
+    want = JSL.FullstartScanner(g, jm.gx).scan(read, offsets=offsets,
+                                               topk=topk)
+    tg = port_graph(g)
+    got = TSL.FullstartScanner(tg, TA.GraphTensors.build(tg),
+                               device="cpu").scan(read, offsets=offsets,
+                                                  topk=topk)
+    assert len(want) >= len(offsets)
+    assert [dataclasses.asdict(s) for s in want] == \
+        [dataclasses.asdict(s) for s in got]
+
+
+@pytest.mark.parametrize("stride", [0, 150], ids=["no_stride", "stride150"])
+def test_seedless_model_matches_jax(stride):
+    g, idx, read, cfg = _seedless_world(stride)
+    ja = JM.GraphAlignerModel(g, idx, JM.AlignerConfig(**cfg)).align_batch(
+        [("r", read)])[0]
+    tcfg = convert.from_reference_aligner_config(
+        dataclasses.asdict(JM.AlignerConfig(**cfg)))
+    assert tcfg.seedless_dp and tcfg.dp_restart_stride == stride
+    ta = TM.GraphAlignerModel(port_graph(g), port_index(idx), tcfg,
+                              device="cpu").align_batch([("r", read)])[0]
+    assert not ta.failed
+    for a, b in [(ja, ta)] + list(zip(ja.secondary, ta.secondary)):
+        _same_alignment(a, b)
+        assert (a.seq_start, a.seq_end) == (b.seq_start, b.seq_end)
+    assert len(ja.secondary) == len(ta.secondary)
+
+
+@pytest.mark.parametrize("stride", [0, 150], ids=["no_stride", "stride150"])
+def test_cli_seedless_outputs_match_jax(tmp_path, stride):
+    """--seedless-DP (and --DP-restart-stride) on the model tests' graph,
+    read and configuration."""
+    _, _, read, _ = _seedless_world(stride)
+    gfa = str(tmp_path / "g.gfa")
+    save_gfa(bubble_graph(np.random.default_rng(77)), gfa)
+    got = _run_both(tmp_path, gfa, [("r", read)],
+                    ["--seedless-DP", "--DP-restart-stride", str(stride),
+                     "-b", "24", "--polish-band", "4",
+                     "--seeds-minimizer-length", "13",
+                     "--seeds-minimizer-windowsize", "10"])
+    assert got["jax"]["gaf"].count(b"\n") >= 1
+    for k in got["jax"]:
+        assert got["jax"][k] == got["torch"][k], k

@@ -121,10 +121,10 @@ def test_cli_gaf_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mode", "optimal"], "--mode"),
+    (["--seeds-mum-count", "3"], "--seeds-mum-count"),
     (["--seeds-mem-count", "5"], "--seeds-mem-count"),
-    (["--seedless-DP"], "--seedless-DP"),
-    (["-a", "x.gam"], "GAM / JSON output"),
+    (["--num-processes", "2"], "--num-processes"),
+    (["--seeds-file", "s.gam"], "--seeds-file"),
     (["--polish-band", "3"], "--polish-band"),
 ])
 def test_cli_rejects_unported(argv, msg):
