@@ -41,7 +41,23 @@ Phases (any failure raises and exits non-zero before the result line):
      reads lapping cyclic graphs) and the CLC path with its GA rescue at
      the default config on the golden_badread set (80 reads), each held
      to the pins of tests/test_cyclic.py and tests/test_parity.py against
-     the reference binary's edit distances (tests/data/golden_*.json).
+     the reference binary's edit distances (tests/data/golden_*.json);
+  6. frag_wide (the F-major full-start DP of optimal mode and seedless
+     DP) against its plain version on the CPU, every output exact: a
+     whole component of the bench graph (B=4096) with a 64-row read
+     prefix, the seedless tiles (B=1024, S=8, three restart offsets) and
+     the hard batch with and without full_start; timed there and at a
+     whole 3 kbp read (S=128); nvcc's report of its registers and
+     spills; optimal mode (OptimalAlignerModel on cuda) on 4 bench reads,
+     each score the exact DAG oracle's minimum; seedless DP
+     (GraphAlignerModel(seedless_dp=True)) on 8 bench reads with every
+     8th base substituted, without and with a restart stride, every read
+     aligned; the bench pass through pipeline.align_reads with GAF, GAM
+     and JSON outputs, the GAM read back to the GAF lines' alignments;
+     and the golden100 set at the default config against
+     tests/test_parity.py's pins.  The plain frag_wide runs and the
+     optimal reads (whose exact traceback is a minute or more of host
+     numpy each) run in processes of their own beside phases 2-3.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 {"ok": true, "device": {...}}.  The line before them is the kernel table.
@@ -189,10 +205,13 @@ def check_frag(label, args, kw, reps=50):
                 plain_ms=plain_ms, bound=bnd)
 
 
+_TEMPLATE_ARG = r"Li(-?\d+)E|Lb([01])E|([as])"
+
+
 def ptxas_report(log_text: str, kernel: str):
     """{instantiation: (registers, stack frame, spill stores, spill loads)}
     of one kernel from nvcc -Xptxas -v output; an instantiation's key
-    names its integer and bool template arguments."""
+    names its template arguments (integers, bools, int8_t / int16_t)."""
     import re
     out, fn = {}, None
     for line in log_text.splitlines():
@@ -201,12 +220,13 @@ def ptxas_report(log_text: str, kernel: str):
         if m:
             fn = m.group(1)
             continue
-        m = re.search(rf"\d+{kernel}ILi(\d+)E(?:Lb([01])E)?", fn or "")
+        m = re.search(rf"\d+{kernel}I(.*?)EEv", fn or "")
         if not m:
             continue
-        key = f"{kernel}<{m.group(1)}" + (
-            "" if m.group(2) is None
-            else f", {('false', 'true')[int(m.group(2))]}") + ">"
+        args = [n if n else ("false", "true")[int(b)] if b
+                else {"a": "int8_t", "s": "int16_t"}[c]
+                for n, b, c in re.findall(_TEMPLATE_ARG, m.group(1))]
+        key = f"{kernel}<{', '.join(args)}>"
         regs, stack, st, ld = out.get(key, (None, None, None, None))
         m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                        r"(\d+) bytes spill loads", line)
@@ -793,34 +813,6 @@ def wide_bound(args, kw, out):
     return bound(b, ops) + (b, ops)
 
 
-def ptxas_wide(log_text: str):
-    """{instantiation: (registers, stack frame, spill stores, spill loads)}
-    of frag_wide_kernel<int8_t / int16_t> from nvcc -Xptxas -v output."""
-    import re
-    out, fn = {}, None
-    for line in log_text.splitlines():
-        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
-                      r"(?: for|$)", line.strip())
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.search(r"\d+frag_wide_kernelI([as])E", fn or "")
-        if not m:
-            continue
-        key = "frag_wide_kernel<%s>" % {"a": "int8_t",
-                                        "s": "int16_t"}[m.group(1)]
-        regs, stack, st, ld = out.get(key, (None, None, None, None))
-        m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                       r"(\d+) bytes spill loads", line)
-        if m2:
-            stack, st, ld = (int(x) for x in m2.groups())
-        m3 = re.search(r"Used (\d+) registers", line)
-        if m3:
-            regs = int(m3.group(1))
-        out[key] = (regs, stack, st, ld)
-    return out
-
-
 def wide_cases(model, reads, dev):
     """The inputs of every frag_wide check: one component band of the
     bench graph at its full width with a 64-row read prefix (S = 2), the
@@ -896,7 +888,7 @@ def ops_cost(gx, aln) -> int:
     return int(cost)
 
 
-def optimal_job(i, graph_bp, n_reads, read_len, device="cuda"):
+def optimal_job(i, graph_bp, n_reads, read_len):
     """Read i of the bench workload through OptimalAlignerModel on the
     card, in a process of its own (its exact traceback is host numpy of
     a minute or more); the launch counts set to 0 just before and read
@@ -910,17 +902,15 @@ def optimal_job(i, graph_bp, n_reads, read_len, device="cuda"):
     from graphchainer_torch.workload import bench_workload
     g, _, index, _, reads, _ = bench_workload(graph_bp, n_reads, read_len)
     name, seq = reads[i]
-    model = OptimalAlignerModel(g, index, device=device)
+    model = OptimalAlignerModel(g, index, device="cuda")
     model.gx.device_tables(model.device)
-    if model.device.type == "cuda":
-        _cuda.lib()
-        torch.cuda.synchronize()
+    _cuda.lib()
+    torch.cuda.synchronize()
     timers.reset()
     _cuda.reset_launches()
     t0 = time.perf_counter()
     aln = model.align_batch([(name, seq)])[0]
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     snap = timers.snapshot()
     return dict(name=name, seq=seq, score=int(aln.score),
@@ -1218,8 +1208,9 @@ def main() -> int:
     # bench graph's widths) and optimal mode's reads, whose exact host
     # traceback takes a minute or more each
     wide = wide_cases(model, reads, dev)
-    pool = ProcessPoolExecutor(max_workers=6,
-                               mp_context=multiprocessing.get_context("spawn"))
+    global _POOL
+    pool = _POOL = ProcessPoolExecutor(
+        max_workers=6, mp_context=multiprocessing.get_context("spawn"))
     wide_plain = [pool.submit(wide_plain_job, *wide_to_numpy(a, kw))
                   for _, a, kw in wide]
     opt_futs = [pool.submit(optimal_job, i, graph_bp, n_reads, read_len)
@@ -1369,7 +1360,7 @@ def main() -> int:
         f"{wide_shape(fa, fkw)}: kernel {full_ms:.3f} ms, bound "
         f"{full_bnd[0]:.5f} ms by {full_bnd[1]} ({full_bnd[2]} bytes, "
         f"{full_bnd[3]} operations)")
-    wptx = ptxas_wide(_cuda.ptxas_log())
+    wptx = ptxas_report(_cuda.ptxas_log(), "frag_wide_kernel")
     log(f"ptxas, frag_wide_kernel (registers, stack frame, spill stores, "
         f"spill loads bytes): {wptx}")
     if len(wptx) != 2:
@@ -1497,5 +1488,12 @@ def main() -> int:
     return 0
 
 
+_POOL = None        # phase 6's host processes, stopped on every way out
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        if _POOL is not None:
+            _POOL.shutdown(wait=True, cancel_futures=True)

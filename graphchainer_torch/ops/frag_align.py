@@ -57,9 +57,23 @@ class FragResult(NamedTuple):
     xbest: Optional[torch.Tensor] = None    # (F,) its X value
     xslot: Optional[torch.Tensor] = None    # (F,) its slot
     xrow: Optional[torch.Tensor] = None     # (F,) its window-local row
-    # align_fragments: every slot's best end score and its column
-    end_score: Optional[torch.Tensor] = None  # (F, B)
-    end_col: Optional[torch.Tensor] = None    # (F, B)
+
+
+class WideResult(NamedTuple):
+    """The outputs of the F-major align_fragments, in the JAX function's
+    order: FragResult's, with every slot's best end score and column."""
+    best_score: torch.Tensor  # (F,) int32 best end score
+    best_slot: torch.Tensor   # (F,) int32 argmin slot (lowest wins ties)
+    best_col: torch.Tensor    # (F,) int32 argmin column within that slot
+    best_in: torch.Tensor     # (F, B, S) int8 (B <= 127) or int16
+    end_score: torch.Tensor   # (F, B) int32 per-slot best end score
+    end_col: torch.Tensor     # (F, B) int32 its column
+    out_ssb: Optional[torch.Tensor] = None
+    out_hp: Optional[torch.Tensor] = None
+    out_hn: Optional[torch.Tensor] = None
+    xbest: Optional[torch.Tensor] = None
+    xslot: Optional[torch.Tensor] = None
+    xrow: Optional[torch.Tensor] = None
 
 
 class _MergeAcc:
@@ -377,7 +391,7 @@ def align_fragments(node_eq, node_len, band_nodes, band_in, seed_shift, req,
                     frag_len, n_slices: int, max_in: int, seed_base=None,
                     full_start: bool = False, band_level=None,
                     n_levels: Optional[int] = None, carry_in=None,
-                    want_xcells: bool = False) -> FragResult:
+                    want_xcells: bool = False) -> WideResult:
     """The F-major banded DP (graphchainer_tpu.ops.frag_align.
     align_fragments), with every argument of the JAX function:
 
@@ -445,7 +459,7 @@ def align_fragments_plain(node_eq, node_len, band_nodes, band_in, seed_shift,
                           seed_base=None, full_start: bool = False,
                           band_level=None, n_levels: Optional[int] = None,
                           carry_in=None, want_xcells: bool = False,
-                          want_state: bool = True) -> FragResult:
+                          want_state: bool = True) -> WideResult:
     """align_fragments in plain torch, on tensors of any device.  The
     slots of one level are gathered and advanced together (the JAX
     function advances every slot and commits a level's: the same values);
@@ -702,4 +716,4 @@ def align_fragments_plain(node_eq, node_len, band_nodes, band_in, seed_shift,
     if want_xcells:
         out.update(xbest=xbest.to(i32), xslot=xslot.to(i32),
                    xrow=xrow.to(i32))
-    return FragResult(**out)
+    return WideResult(**out)

@@ -245,16 +245,10 @@ def to_numpy(res: _fa.FragResult) -> _fa.FragResult:
 _NP_DTYPE = {torch.int32: "int32", torch.int8: "int8"}
 
 
-def wide_buffers(S: int) -> int:
-    """The end-word buffers of a frag_wide fragment: a slice wavefront
-    keeps one per slice of a round, a level-by-level run two."""
-    return max(2, min(S, WIDE_THREADS))
-
-
 def frag_wide_cuda(node_eq, node_len, band_nodes, band_in, band_level,
                    seed_shift, req, rows, seed_base=None, *, S: int,
                    max_in: int, n_levels: int,
-                   full_start: bool) -> _fa.FragResult:
+                   full_start: bool) -> _fa.WideResult:
     """Launch csrc/frag_wide.cu on CUDA tensors: node_eq uint32 bits in
     int32 (N2, 4), node_len int32 (N2,), band_nodes int32 (F, B), band_in
     int16 (F, B, max_in), band_level int32 (F, B), seed_shift int32 (F,),
@@ -288,7 +282,7 @@ def frag_wide_cuda(node_eq, node_len, band_nodes, band_in, band_level,
     dev = band_nodes.device
     ptr = torch.int8 if B <= 127 else torch.int16
     i32 = torch.int32
-    out = _fa.FragResult(
+    out = _fa.WideResult(
         best_score=torch.empty(F, dtype=i32, device=dev),
         best_slot=torch.empty(F, dtype=i32, device=dev),
         best_col=torch.empty(F, dtype=i32, device=dev),
@@ -296,7 +290,9 @@ def frag_wide_cuda(node_eq, node_len, band_nodes, band_in, band_level,
         end_score=torch.empty((F, B), dtype=i32, device=dev),
         end_col=torch.empty((F, B), dtype=i32, device=dev))
     if F:
-        T = wide_buffers(S)
+        # end-word buffers of a fragment: one per slice of a wavefront
+        # round, two (slice parity) for a level-by-level run
+        T = max(2, min(S, WIDE_THREADS))
         scratch = torch.empty((F, T, B, 4), dtype=i32, device=dev)
         L = _cuda.lib()
         rc = L.frag_wide_launch(

@@ -168,8 +168,7 @@ def test_frag_outputs_come_home_in_one_copy():
     buf = torch.arange(6 * F + 3 * F * B + -(-F * B * S // 4),
                        dtype=torch.int32) - 7
     res = frag_kernel._result_views(buf, F, B, S, True, True)
-    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res
-               if x is not None)
+    assert all(x.untyped_storage().data_ptr() == buf.data_ptr() for x in res)
     host = frag_kernel.to_numpy(res)
     assert host.out_hp.dtype == np.uint32 and host.out_hp.shape == (F, B)
     np.testing.assert_array_equal(host.out_hn.view(np.int32),
@@ -486,7 +485,9 @@ def test_wide_kernel_call_refuses_what_it_does_not_take():
         frag_kernel.frag_wide_cuda(*base[:2], wide, *base[3:], **kw)
 
 
-def test_ptxas_wide_reads_nvcc_output():
+def test_ptxas_report_reads_type_arguments():
+    """The same reading for frag_wide_kernel, whose template argument is
+    the pointer type."""
     import chip_smoke
     log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116frag_wide_kernelIaEEvPK5uint4PKiS5_PKs' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_wide_kernelIaEEvPK5uint4PKiS5_PKs
@@ -501,7 +502,7 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_116frag_wide_kernelIsEEv
     8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers
 """
-    assert chip_smoke.ptxas_wide(log) == {
+    assert chip_smoke.ptxas_report(log, "frag_wide_kernel") == {
         "frag_wide_kernel<int8_t>": (90, 0, 0, 0),
         "frag_wide_kernel<int16_t>": (96, 8, 0, 0)}
 
@@ -516,11 +517,14 @@ def wide_bench_case(case):
     g, _, index, _, reads, _ = bench_workload(60_000, 1, 3000)
     read = reads[0][1]
     if case == "B4096":
-        return OptimalAlignerModel(g, index, device="cpu").component_inputs(
-            read[:64], 0)
-    scan = FullstartScanner(g, OptimalAlignerModel(
-        g, index, device="cpu").gx, device="cpu")
-    return scan.scan_inputs(read, offsets=(0,), prefix_rows=64)[:2]
+        args, kw = OptimalAlignerModel(g, index, device="cpu"
+                                       ).component_inputs(read[:64], 0)
+    else:
+        scan = FullstartScanner(g, OptimalAlignerModel(
+            g, index, device="cpu").gx, device="cpu")
+        args, kw = scan.scan_inputs(read, offsets=(0,), prefix_rows=64)[:2]
+    # the CPU route keeps node words as int64, the kernel takes their bits
+    return (to_i32_bits(args[0]),) + args[1:], kw
 
 
 @pytest.mark.gpu

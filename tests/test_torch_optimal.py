@@ -96,11 +96,17 @@ _FIELDS = ("best_score", "best_slot", "best_col", "best_in", "end_score",
 def test_align_fragments_full_start_matches_jax(world, B):
     kw = _optimal_inputs(world)
     assert kw["band_nodes"].shape[1] == B
-    want = JF.align_fragments(**kw)
-    t = {k: (v if isinstance(v, (int, bool))
-             else torch.as_tensor(np.asarray(v).astype(np.int64)))
-         for k, v in kw.items()}
-    got = TF.align_fragments(**t)
+    # the model's call, arguments placed as it places them (a keyword
+    # where it passes a position would compile anew)
+    pos = [kw.pop(k) for k in ("node_eq", "node_len", "band_nodes",
+                               "band_in", "seed_shift", "req", "frag_len")]
+    want = JF.align_fragments(*pos, **kw)
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v).astype(np.int64))
+    got = TF.align_fragments(*(t(v) for v in pos), **{
+        k: (v if isinstance(v, (int, bool)) else t(v))
+        for k, v in kw.items()})
     assert got.best_in.dtype == (torch.int8 if B <= 127 else torch.int16)
     for k in _FIELDS:
         a = np.asarray(getattr(want, k))
