@@ -7,26 +7,29 @@ Phases (any failure raises and exits non-zero before the result line):
   1. environment: torch / CUDA versions, the card, building the CUDA
      kernels (csrc/*.cu, one nvcc per source for sm_90a) and, beside
      them, the C++ host runtime (g++);
-  2. each kernel against its plain torch version on the card, exact
-     equality, at the main path's shapes from real batches of the bench
-     workload: frag_core on a 128-read batch as run_fragments launches it
-     (the band at its own width B_eff, host-typed inputs), the same batch
-     padded to B=32, the escalation shape B=96 / max_in=12 on 16 reads and
-     the hard batches of workload.frag_hard_batch (B=8 / S=3 and B=128 /
-     max_in=12), and nvcc's report of its registers and spills (any
-     stack frame or spill fails); both entries (warp per read, thread
-     per read) of polish_core and of polish_walk
-     (score + backtrace over the fill's dump) at bw 8, 16 and 32 on 32
-     reads against their stitched paths, on a batch whose 48 bp paths
-     force band shifts of several words per column, and on a batch that
-     mixes such reads, empty ones and long indels with ordinary reads,
-     once under an ops_cap that long walks overflow; then both entries of
-     both polish kernels timed in turns on a 128-read batch, with the
-     bound of each kernel reckoned from that batch; and the carried entry
-     of frag_core (GA mode's windows: a carried state in, the state and
-     the best X cell out) on GA windows of the bench workload, fresh and
-     carried, as launched and padded to B=48 and B=96, and on the hard
-     batch with a random carry and per-slot trims, every output exact;
+  2. each kernel against its plain torch version, exact equality, at the
+     main path's shapes from real batches of the bench workload:
+     frag_core on a 128-read batch as run_fragments launches it (the band
+     at its own width B_eff, host-typed inputs), the same batch padded to
+     B=32, the escalation shape B=96 / max_in=12 on 16 reads and the hard
+     batches of workload.frag_hard_batch (B=8 / S=3 and B=128 /
+     max_in=12), and nvcc's report of its registers and spills (any stack
+     frame or spill fails); polish_core and polish_walk (score +
+     backtrace over the fill's dump) on the main path's 128 reads against
+     their stitched paths at every band width of the default ramp (8, 16,
+     32: the warp entries) and of the ramp from a start of 3 or 12 (3, 6,
+     12, 24, 48: the run-time-bw entries), each timed there with its
+     bound, on a batch whose 48 bp paths force band shifts of several
+     words per column, and on workload.polish_hard_pairs (empty reads and
+     paths, long indels, steep bands mixed with ordinary reads) at bw 8,
+     12 and 16, under an ops_cap that long walks overflow too (the plain
+     polish versions run on the CPU, in processes of their own, and their
+     dumps are compared by sha256 digest, their rows whole); and the
+     carried entry of frag_core (GA mode's windows: a carried state in,
+     the state and the best X cell out) on GA windows of the bench
+     workload, fresh and carried, as launched and padded to B=48 and
+     B=96, and on the hard batch with a random carry and per-slot trims,
+     every output exact;
   3. the main path: bench.py's workload (960 reads of ~3 kbp at 10% error
      on the synthetic 60 kbp graph) through ChainerModel.align_batch on
      cuda, one warm pass and one timed pass; frag_core and the warp
@@ -34,9 +37,11 @@ Phases (any failure raises and exits non-zero before the result line):
      accuracy bounds; and 8 reads run again on the CPU (the plain
      versions) must give the same alignments, and so must 4 reads with
      every read compared with the GA baseline (the rescue path, through
-     the carried entry);
+     the carried entry); then the whole bench pass from a polish band of
+     12 words (ramp 12 -> 24 -> 48, the run-time-bw entries);
   4. a real-size graph: 128 reads on a 5 Mbp graph from the same
-     generator;
+     generator, then its MEM index (suffix array built, saved as
+     .sa.npz and loaded back equal) and the 128 reads with MEM seeds;
   5. GA mode (GraphAlignerModel on cuda) on the golden_cyclic set (36
      reads lapping cyclic graphs) and the CLC path with its GA rescue at
      the default config on the golden_badread set (80 reads), each held
@@ -57,7 +62,17 @@ Phases (any failure raises and exits non-zero before the result line):
      and the golden100 set at the default config against
      tests/test_parity.py's pins.  The plain frag_wide runs and the
      optimal reads (whose exact traceback is a minute or more of host
-     numpy each) run in processes of their own beside phases 2-3.
+     numpy each) run in processes of their own beside phases 2-3;
+  7. the bench pass through pipeline.align_reads with MEM seeds
+     (mem_count 8, mxm_length 20, the suffix array built and saved first),
+     with MUM seeds (mum_count 1) and with the outputs pass's GAM as file
+     seeds: reads/s, accuracy, seeds and launches, and a 16-read subset
+     of each on the CPU (plain versions, in a process of its own) giving
+     the card's GAF lines byte for byte; and python -m graphchainer_torch
+     on the bench reads as two processes on one card (gloo at a free
+     local port) against one process: the .part0 / .part1 GAF lines,
+     merged and sorted, equal the one-process run's, and so do the
+     reported counts.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 {"ok": true, "device": {...}}.  The line before them is the kernel table.
@@ -77,11 +92,12 @@ BIG_GRAPH_BP = 5_000_000     # phase 4: about an MHC-region graph
 ACC_ALIGNED_MIN = 0.99       # aligned_fraction lower bound
 ACC_NORM_ED_MAX = 0.095      # mean_norm_edit_distance upper bound (the
                              # reference package recorded 0.0864 here)
-# the kernels the main path must launch; the serial entries of the polish
-# kernels serve band widths it never uses and are timed as the yardstick
+# the kernels the main path must launch
 MAIN_PATH_KERNELS = ("frag_core", "polish_core", "polish_walk")
 # the kernels GA mode must launch (its windows run the carried entry)
 GA_PATH_KERNELS = ("frag_core_carried", "polish_core", "polish_walk")
+# the polish entries a band ramp from outside 8 / 16 / 32 must launch
+ANY_PATH_KERNELS = ("polish_core_any", "polish_walk_any")
 BIG = 1 << 28
 
 
@@ -311,101 +327,98 @@ def polish_kernel_args(pairs, bw, dev):
     return k_in, (planes_t, path_t, rl, pl), steps, cap
 
 
-def check_polish(pairs, bw, dev, label, small_cap=0):
-    """Both entries of the fill kernel and of the walk kernel against the
-    plain torch versions on the same pairs: the dump of each fill entry,
-    then the packed rows of each walk entry over its own fill's dump
-    (and, with small_cap, again under an ops_cap that short walks fit
-    and long ones overflow).  Returns (fill max abs err, walk max abs
-    err, plain fill ms, plain walk ms): the plain versions are timed in
-    their one run here."""
+def digest(t) -> str:
+    """sha256 of an integer tensor's values as contiguous int64."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.to(torch.int64).contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def polish_plain_job(pairs, bw, small_cap=0):
+    """The plain fill and walk (linear_align._polish_core_t, _polish_walk_t)
+    of (read, path) pairs on the CPU, in a process of its own: the digests
+    of the dump's four outputs (dump_vp, dump_vn, dump_sb, dump_base), the
+    packed rows of the walk under the polish's ops_cap (and small_cap), and
+    the milliseconds of the fill and of the walk."""
+    import torch
+    torch.set_num_threads(1)
+    from graphchainer_torch.ops import linear_align
+    _, p_in, steps, cap = polish_kernel_args(pairs, bw, "cpu")
+    t0 = time.perf_counter()
+    dump = linear_align._polish_core_t(*p_in, bw)
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    rows, walk_ms = {}, None
+    for c in (cap, small_cap) if small_cap else (cap,):
+        t0 = time.perf_counter()
+        rows[c] = linear_align._polish_walk_t(*dump, *p_in, bw, steps,
+                                              c).numpy()
+        walk_ms = walk_ms or (time.perf_counter() - t0) * 1e3
+    return dict(digests=[digest(x) for x in dump], rows=rows,
+                fill_ms=fill_ms, walk_ms=walk_ms)
+
+
+def check_polish(pairs, bw, dev, label, plain, timed=False):
+    """The fill and walk kernels (the entry the band width takes) against
+    the plain versions' results on the same pairs (plain: the future of
+    polish_plain_job): every dump output and every packed row exact, the
+    walk over the kernel's own dump, under each ops_cap the plain job ran.
+    With timed, both kernels are timed and their bounds reckoned.  Returns
+    a dict of the readings."""
     import torch
     from graphchainer_torch.ops import linear_align, polish_kernel
     from graphchainer_torch.ops.myers import u32
     k_in, p_in, steps, cap = polish_kernel_args(pairs, bw, dev)
     R, P = len(pairs), p_in[1].shape[0]
-    ref = None
-
-    def plain_fill():
-        nonlocal ref
-        ref = linear_align._polish_core_t(*p_in, bw)
-    fill_plain = cuda_ms(plain_fill, warm=False)
-    fill_err, dumps = 0, {}
-    for entry in polish_kernel.ENTRIES:
-        got = polish_kernel.polish_core_cuda(*k_in, bw, entry=entry)
-        torch.cuda.synchronize()
-        dumps[entry] = got
-        for name, a, b, word in zip(("dump_vp", "dump_vn", "dump_sb",
-                                     "dump_base"), got, ref,
-                                    (True, True, False, False)):
-            e = max_abs_diff(u32(a) if word else a, b)
-            fill_err = max(fill_err, e)
-            if e:
-                raise AssertionError(
-                    f"polish_core[{entry}] bw={bw} ({label}): {name} "
-                    f"differs from the plain version (max abs diff {e})")
-    walk_err, walk_plain, n_ok = 0, float("nan"), []
-    for c in ((cap, small_cap) if small_cap else (cap,)):
-        rows = None
-
-        def plain_walk():
-            nonlocal rows
-            rows = linear_align._polish_walk_t(*ref, *p_in, bw, steps, c)
-        t = cuda_ms(plain_walk, warm=False)
-        if c == cap:
-            walk_plain = t
-        for entry in polish_kernel.ENTRIES:
-            got = polish_kernel.polish_walk_cuda(*dumps[entry], *k_in, bw,
-                                                 steps, c, entry=entry)
-            torch.cuda.synchronize()
-            e = max_abs_diff(got, rows)
-            walk_err = max(walk_err, e)
-            if e:
-                raise AssertionError(
-                    f"polish_walk[{entry}] bw={bw} ops_cap={c} ({label}): "
-                    f"packed rows differ from the plain version (max abs "
-                    f"diff {e})")
-        n_ok.append(int((rows[:, 1] >= 0).sum()))
-    log(f"polish bw={bw} ({label}) R={R} RW={k_in[0].shape[1]} P={P} "
-        f"max_steps={steps} ops_cap={cap}"
-        + (f" and {small_cap}" if small_cap else "")
-        + f": fill and walk, warp and serial entries, exact "
-        f"({'/'.join(map(str, n_ok))} of {R} walks complete); plain fill "
-        f"{fill_plain:.3f} ms, plain walk {walk_plain:.3f} ms")
-    return fill_err, walk_err, fill_plain, walk_plain
-
-
-def time_polish_entries(pairs, bw, dev, reps=5):
-    """Old and new design of both polish kernels on one batch, in turns
-    (warp, serial, serial, warp), `reps` launches a turn.  The rows of
-    the two designs must be equal.  Returns {kernel: {entry: ms}} and the
-    inputs' sizes for the bound."""
-    import torch
-    from graphchainer_torch.ops import polish_kernel
-    k_in, _, steps, cap = polish_kernel_args(pairs, bw, dev)
-    fill = {e: (lambda e=e: polish_kernel.polish_core_cuda(*k_in, bw,
-                                                           entry=e))
-            for e in polish_kernel.ENTRIES}
-    dumps = {e: fill[e]() for e in polish_kernel.ENTRIES}
-    walk = {e: (lambda e=e: polish_kernel.polish_walk_cuda(
-        *dumps[e], *k_in, bw, steps, cap, entry=e))
-        for e in polish_kernel.ENTRIES}
-    rows = {e: walk[e]() for e in polish_kernel.ENTRIES}
+    entry = polish_kernel.entry_for(bw)
+    got = polish_kernel.polish_core_cuda(*k_in, bw)
     torch.cuda.synchronize()
-    if not torch.equal(rows["warp"], rows["serial"]):
-        raise AssertionError(f"polish bw={bw}: the warp entries' packed "
-                             "rows differ from the serial entries'")
-    out = {}
-    for name, fns in (("polish_core", fill), ("polish_walk", walk)):
-        turns = {"warp": [], "serial": []}
-        for e in ("warp", "serial", "serial", "warp"):
-            turns[e].append(cuda_ms(fns[e], reps=reps))
-        out[name] = {e: sum(v) / len(v) for e, v in turns.items()}
-        log(f"{name} bw={bw} R={len(pairs)} P={k_in[1].shape[0]} "
-            f"RW={k_in[0].shape[1]}: warp {turns['warp'][0]:.4f} / "
-            f"{turns['warp'][1]:.4f} ms, serial {turns['serial'][0]:.4f} / "
-            f"{turns['serial'][1]:.4f} ms")
-    return out, k_in, dumps["warp"], rows["warp"]
+    ref = plain.result()
+    names = ("dump_vp", "dump_vn", "dump_sb", "dump_base")
+    for i, (name, a) in enumerate(zip(names, got)):
+        if digest(u32(a) if i < 2 else a) != ref["digests"][i]:
+            e = max_abs_diff(u32(a) if i < 2 else a,
+                             linear_align._polish_core_t(*p_in, bw)[i])
+            raise AssertionError(
+                f"polish_core[{entry}] bw={bw} ({label}): {name} differs "
+                f"from the plain version (max abs diff {e})")
+    n_ok = []
+    for c, want in ref["rows"].items():
+        rows = polish_kernel.polish_walk_cuda(*got, *k_in, bw, steps, c)
+        torch.cuda.synchronize()
+        e = max_abs_diff(rows.cpu(), torch.from_numpy(want))
+        if e:
+            raise AssertionError(
+                f"polish_walk[{entry}] bw={bw} ops_cap={c} ({label}): packed "
+                f"rows differ from the plain version (max abs diff {e})")
+        n_ok.append(int((want[:, 1] >= 0).sum()))
+    out = dict(bw=bw, label=label, entry=entry, fill_plain_ms=ref["fill_ms"],
+               walk_plain_ms=ref["walk_ms"])
+    timing = ""
+    if timed:
+        out["fill_ms"] = cuda_ms(
+            lambda: polish_kernel.polish_core_cuda(*k_in, bw), reps=5)
+        out["walk_ms"] = cuda_ms(lambda: polish_kernel.polish_walk_cuda(
+            *got, *k_in, bw, steps, cap), reps=5)
+        out["fill_bound"] = fill_bound(k_in, got, bw)
+        out["walk_bound"] = walk_bound(rows, k_in, P)
+        timing = (f"; kernels fill {out['fill_ms']:.4f} ms (bound "
+                  f"{out['fill_bound'][0]:.5f} ms by "
+                  f"{out['fill_bound'][1]}), walk {out['walk_ms']:.4f} ms "
+                  f"(bound {out['walk_bound'][0]:.5f} ms by "
+                  f"{out['walk_bound'][1]})")
+    log(f"polish bw={bw} [{entry} entries] ({label}) R={R} "
+        f"RW={k_in[0].shape[1]} P={P} max_steps={steps} ops_cap="
+        f"{'/'.join(map(str, ref['rows']))}: fill and walk exact "
+        f"({'/'.join(map(str, n_ok))} of {R} walks complete); plain (CPU) "
+        f"fill {ref['fill_ms']:.1f} ms, walk {ref['walk_ms']:.1f} ms"
+        + timing)
+    return out
+
+
+WARP_BANDS = (8, 16, 32)            # the default ramp: the warp entries
+ANY_BANDS = (3, 6, 12, 24, 48)      # the ramp from a start of 3 (and 12):
+                                    # the run-time-bw entries
 
 
 # ---------------------------------------------------------------- bounds
@@ -1027,6 +1040,8 @@ def run_outputs(graph_bp, reads, dev):
         with open(outs["json"]) as fh:
             js = [json.loads(ln) for ln in fh]
         gam = load_gam_alignments(outs["gam"])
+        with open(outs["gam"], "rb") as fh:
+            gam_bytes = fh.read()
     for k in MAIN_PATH_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"outputs pass: kernel {k} never launched")
@@ -1053,7 +1068,7 @@ def run_outputs(graph_bp, reads, dev):
         f"{len(gaf)} GAF lines == {len(gam)} GAM records read back "
         f"(names, node paths, offsets, lengths) == {len(js)} JSON lines; "
         f"launches {json.dumps(launches)}")
-    return dict(records=len(gam), launches=launches)
+    return dict(records=len(gam), launches=launches, gam=gam_bytes)
 
 
 def run_golden100(dev):
@@ -1092,6 +1107,267 @@ def run_golden100(dev):
         f"{json.dumps(launches)}")
     return dict(score_golden("golden100", model.gx, reads, alns, pins, 95,
                              0.3), launches=launches, seconds=wall)
+
+
+# ---------------------------------------------------------------- phase 7
+def write_bench_inputs(td, graph_bp, reads):
+    """The bench graph as GFA and `reads` as FASTA under td: (gfa, fa)."""
+    import os
+    import numpy as np
+    from graphchainer_torch.workload import _write_gfa, build_bench_graph
+    gfa = os.path.join(td, "bench.gfa")
+    _write_gfa(build_bench_graph(np.random.default_rng(7), graph_bp), gfa)
+    fa = os.path.join(td, f"reads{len(reads)}.fa")
+    with open(fa, "w") as fh:
+        fh.write("".join(f">{n}\n{s}\n" for n, s in reads))
+    return gfa, fa
+
+
+def seeded_params(gfa, fa, out_gaf, dev, **seeding):
+    """The pipeline's parameters of the seeded passes: the bench pass's
+    batches, workers and minimizer index (the rescue's seeds), and
+    `seeding` (mem_count / mum_count / mxm_length / mxm_cache_prefix /
+    seed_file)."""
+    from graphchainer_torch.pipeline import PipelineParams
+    return PipelineParams(graph_file=gfa, read_files=[fa], out_gaf=out_gaf,
+                          batch_size=128, inflight=4, seed_k=15, seed_w=10,
+                          device=str(dev), **seeding)
+
+
+def seeds_subset_job(graph_bp, n_reads, read_len, n_sub, seeding,
+                     gam=None):
+    """The first n_sub bench reads through pipeline.align_reads on the CPU
+    (the plain versions), in a process of its own, with `seeding` (file
+    seeds: the GAM's bytes, written here).  Returns the GAF lines."""
+    import os
+    import tempfile
+    import torch
+    torch.set_num_threads(1)
+    from graphchainer_torch.pipeline import align_reads
+    from graphchainer_torch.workload import bench_workload
+    reads = bench_workload(graph_bp, n_reads, read_len)[4][:n_sub]
+    with tempfile.TemporaryDirectory() as td:
+        gfa, fa = write_bench_inputs(td, graph_bp, reads)
+        seeding = dict(seeding)
+        if gam is not None:
+            seeding["seed_file"] = os.path.join(td, "seeds.gam")
+            with open(seeding["seed_file"], "wb") as fh:
+                fh.write(gam)
+        if seeding.get("mxm_cache_prefix"):
+            seeding["mxm_cache_prefix"] = os.path.join(td, "sa")
+        out = os.path.join(td, "out.gaf")
+        align_reads(seeded_params(gfa, fa, out, "cpu", **seeding))
+        with open(out) as fh:
+            return fh.read().splitlines()
+
+
+def gaf_accuracy(lines, reads):
+    """(aligned_fraction, mean_norm_edit_distance) of a CLC run's GAF
+    lines: one line per aligned read, its NM edit distance over the read's
+    length."""
+    import numpy as np
+    eds = [int(next(f for f in ln.split("\t") if f.startswith("NM:i:"))[5:])
+           / max(int(ln.split("\t")[1]), 1) for ln in lines]
+    return len(lines) / max(len(reads), 1), (float(np.mean(eds)) if eds
+                                             else None)
+
+
+def run_seeded(label, graph_bp, reads, dev, sub, gam=None, **seeding):
+    """The bench reads through pipeline.align_reads on the card with
+    `seeding`, the launch counts set to 0 just before and read just
+    after: reads/s (the wall of align_reads, set-up included), accuracy
+    within the limits, every read of the workload seeded and the GAF lines
+    of the subset run on the CPU (sub: the future of seeds_subset_job)
+    byte-equal to the card's.  With mxm_cache_prefix the suffix array is
+    built (timed) and saved first, and the pass loads it; gam: the bytes
+    of a seed file for seed_file."""
+    import os
+    import tempfile
+    import torch
+    from graphchainer_torch import pipeline
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.utils import timers
+    with tempfile.TemporaryDirectory() as td:
+        gfa, fa = write_bench_inputs(td, graph_bp, reads)
+        sa_s = None
+        if gam is not None:
+            seeding["seed_file"] = os.path.join(td, "seeds.gam")
+            with open(seeding["seed_file"], "wb") as fh:
+                fh.write(gam)
+        if seeding.get("mxm_cache_prefix"):
+            seeding["mxm_cache_prefix"] = os.path.join(td, "sa")
+            t0 = time.perf_counter()
+            pipeline.get_or_build_mem(pipeline.load_graph(gfa),
+                                      seeding["mxm_cache_prefix"])
+            sa_s = time.perf_counter() - t0
+        out = os.path.join(td, "out.gaf")
+        params = seeded_params(gfa, fa, out, dev, **seeding)
+        torch.cuda.synchronize()
+        timers.reset()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        stats = pipeline.align_reads(params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _cuda.launches()
+        counters = timers.counters()
+        stages = {k: round(v[0], 3) for k, v in timers.snapshot().items()}
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+    aligned, ned = gaf_accuracy(lines, reads)
+    log(f"{label}: {stats.reads} reads in {wall:.3f} s = "
+        f"{stats.reads / wall:.2f} reads/s (align_reads, set-up included)"
+        + (f"; suffix array built and saved in {sa_s:.3f} s" if sa_s
+           is not None else "")
+        + f"; seeds found {stats.seeds_found}, reads with a seed "
+        f"{stats.reads_with_a_seed}; aligned_fraction {aligned:.4f}, "
+        f"mean_norm_edit_distance {ned:.4f}; escalated reads "
+        f"{counters.get('escalated_reads', 0)}, rescued reads "
+        f"{counters.get('rescued_reads', 0)}; launches "
+        f"{json.dumps(launches)}")
+    log(f"{label}: stage seconds (thread-summed) {json.dumps(stages)}")
+    need = MAIN_PATH_KERNELS + (("frag_core_carried",)
+                                if counters.get("rescued_reads", 0) else ())
+    for k in need:
+        if launches[k] <= 0:
+            raise AssertionError(f"{label}: kernel {k} never launched")
+    if aligned < ACC_ALIGNED_MIN or ned is None or ned > ACC_NORM_ED_MAX:
+        raise AssertionError(f"{label}: aligned_fraction {aligned}, "
+                             f"mean_norm_edit_distance {ned}")
+    cpu = sub.result()
+    names = {ln.split("\t")[0] for ln in cpu}
+    card = [ln for ln in lines if ln.split("\t")[0] in names]
+    if card != cpu or not cpu:
+        raise AssertionError(f"{label}: the {len(cpu)} GAF lines of the CPU "
+                             "subset differ from the card's")
+    log(f"{label}: the {len(cpu)} GAF lines of a {len(cpu)}-read subset on "
+        "the CPU (plain versions) == the card's, byte for byte")
+    return dict(reads=stats.reads, seconds=wall,
+                reads_per_s=stats.reads / wall, aligned_fraction=aligned,
+                mean_norm_edit_distance=ned, seeds=stats.seeds_found,
+                sa_build_s=sa_s, launches=launches, stages=stages,
+                escalated=counters.get("escalated_reads", 0),
+                rescued=counters.get("rescued_reads", 0), lines=lines)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_two_processes(graph_bp, reads, dev):
+    """python -m graphchainer_torch on the bench reads as two processes on
+    one card (--num-processes 2, gloo at a free local port) and as one
+    process, all three at once: the merged, sorted .part0 / .part1 GAF
+    lines equal the one-process GAF lines, sorted, and each of the two
+    reports the one-process run's read and aligned counts."""
+    import os
+    import re
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as td:
+        gfa, fa = write_bench_inputs(td, graph_bp, reads)
+        base = [sys.executable, "-m", "graphchainer_torch", "-g", gfa, "-f",
+                fa, "--device", str(dev), "--seeds-minimizer-length", "15",
+                "--seeds-minimizer-windowsize", "10", "--batch-size", "128",
+                "-t", "4"]
+        coord = f"127.0.0.1:{free_port()}"
+        runs = {"one": base + ["-a", os.path.join(td, "one.gaf")]}
+        for i in range(2):
+            runs[f"part{i}"] = base + [
+                "-a", os.path.join(td, "two.gaf"), "--num-processes", "2",
+                "--process-id", str(i), "--coordinator", coord]
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(v, cwd=here, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, v in runs.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                o, e = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"two processes: {k} exited "
+                                         f"{p.returncode}: {e[-2000:]}")
+                outs[k] = o
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+
+        def lines(path):
+            with open(path) as fh:
+                return fh.read().splitlines()
+        one = sorted(lines(os.path.join(td, "one.gaf")))
+        parts = [lines(os.path.join(td, f"two.gaf.part{i}"))
+                 for i in range(2)]
+    merged = sorted(parts[0] + parts[1])
+    if merged != one or not one:
+        raise AssertionError(f"two processes: {len(merged)} merged GAF lines "
+                             f"!= the {len(one)} of one process")
+
+    def counts(o):
+        return (re.search(r"Input reads: (\d+)", o).group(1),
+                re.search(r"Reads with an alignment: (\d+)", o).group(1))
+    if not counts(outs["part0"]) == counts(outs["part1"]) \
+            == counts(outs["one"]):
+        raise AssertionError(f"two processes: counts {counts(outs['part0'])}"
+                             f" / {counts(outs['part1'])}, one process "
+                             f"{counts(outs['one'])}")
+    log(f"two processes on one card: {len(parts[0])} + {len(parts[1])} GAF "
+        f"lines, merged and sorted == the one-process run's {len(one)}; "
+        f"each reports (input reads, reads with an alignment) "
+        f"{counts(outs['one'])} == one process; all three in {wall:.2f} s")
+    return dict(parts=[len(x) for x in parts], lines=len(one), seconds=wall)
+
+
+def run_big_mem(gb, mpcb, indexb, readsb, dev):
+    """MEM seeds on the 5 Mbp graph: the suffix array built (timed), saved
+    as PREFIX.sa.npz and loaded back equal, and 128 reads aligned with
+    MEM seeds on the card."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from graphchainer_torch import pipeline
+    from graphchainer_torch.index.mem import MemIndex, MemSeeder
+    from graphchainer_torch.models.chainer import ChainerModel
+    with tempfile.TemporaryDirectory() as td:
+        prefix = os.path.join(td, "big")
+        t0 = time.perf_counter()
+        idx = pipeline.get_or_build_mem(gb, prefix)
+        build_s = time.perf_counter() - t0
+        size = os.path.getsize(prefix + ".sa.npz")
+        t0 = time.perf_counter()
+        back = MemIndex.load(prefix + ".sa.npz")
+        load_s = time.perf_counter() - t0
+    for k in ("text", "sa", "starts"):
+        if not np.array_equal(getattr(idx, k), getattr(back, k)):
+            raise AssertionError(f"big graph MEM index: {k} differs after "
+                                 "the .sa.npz round trip")
+    seeder = MemSeeder(gb, back, min_len=20, max_count=8)
+    model = ChainerModel(gb, mpcb, indexb,
+                         seed_fn=lambda n, s: seeder.get_seeds(s),
+                         device=dev)
+    t0 = time.perf_counter()
+    alns = model.align_batch(readsb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok = sum(not a.failed for a in alns)
+    ned = float(np.mean([a.score / len(a.seq) for a in alns
+                         if not a.failed]))
+    log(f"big graph MEM: suffix array of {len(idx.text)} bases built and "
+        f"saved in {build_s:.2f} s ({size} bytes), loaded back equal in "
+        f"{load_s:.2f} s; {len(readsb)} reads with MEM seeds in {wall:.3f} "
+        f"s = {len(readsb) / wall:.2f} reads/s; aligned {ok}/{len(readsb)},"
+        f" mean_norm_edit_distance {ned:.4f}")
+    if ok < 0.99 * len(readsb):
+        raise AssertionError(f"big graph MEM: only {ok} reads aligned")
+    return dict(text=len(idx.text), build_s=build_s, load_s=load_s,
+                bytes=size, seconds=wall, aligned=ok, ned=ned)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1203,57 +1479,59 @@ def main() -> int:
         f"{n_reads} reads of ~{read_len} bp; host build {build_s:.2f} s")
     model = ChainerModel(g, mpc, index, device="cuda")
 
-    # ---- host work of phase 6 in processes of its own, beside phase 2:
-    # the plain version of frag_wide on the CPU (a minute and more at the
-    # bench graph's widths) and optimal mode's reads, whose exact host
-    # traceback takes a minute or more each
-    wide = wide_cases(model, reads, dev)
+    # ---- host work in processes of its own, beside phases 2-5, in the
+    # order it is needed: the plain versions of the polish kernels on the
+    # CPU (10-60 s each at the main path's widths), the CPU runs of the
+    # seeded passes' subsets, the plain version of frag_wide (a minute and
+    # more each) and optimal mode's reads, whose exact host traceback
+    # takes a minute or more each
+    n_timed = 32 if quick else 128
+    # the main path's batch, whole: the warp entries' grid and the
+    # strides of planes and path are its read count
+    pairs_all = stitched_pairs(model, reads[:n_timed])
+    pairs48 = [(r, p[:48]) for r, p in pairs_all[:32]]
+    hard = [(r, p) for _, r, p in polish_hard_pairs(
+        5, 8, 1500 if quick else 3000)]
+    small_cap = 1600 if quick else 3200
+    # (label, pairs, bw, small_cap, timed): every entry at every width of
+    # both ramps on the main path's batch (timed there), a batch whose
+    # 48 bp paths move the band several words a column, and the hard
+    # cases, under an ops_cap that long walks overflow too
+    polish_cases = ([("stitched paths", pairs_all, bw, 0, True)
+                     for bw in WARP_BANDS + ANY_BANDS]
+                    + [("48 bp paths, multi-word shifts", pairs48, 8, 0,
+                        False),
+                       ("hard cases mixed in", hard, 8, small_cap, False),
+                       ("hard cases mixed in", hard, 16, 0, False),
+                       ("hard cases mixed in", hard, 12, small_cap, False)])
     global _POOL
     pool = _POOL = ProcessPoolExecutor(
         max_workers=6, mp_context=multiprocessing.get_context("spawn"))
+    polish_plain = [pool.submit(polish_plain_job, pr, bw, c)
+                    for _, pr, bw, c, _ in polish_cases]
+    n_sub = 8 if quick else 16
+    seed_runs = {"MEM seeds": dict(mem_count=8, mxm_length=20,
+                                   mxm_cache_prefix="sa"),
+                 "MUM seeds": dict(mum_count=1, mxm_length=20)}
+    seed_subs = {k: pool.submit(seeds_subset_job, graph_bp, n_reads,
+                                read_len, n_sub, v)
+                 for k, v in seed_runs.items()}
+    wide = wide_cases(model, reads, dev)
     wide_plain = [pool.submit(wide_plain_job, *wide_to_numpy(a, kw))
                   for _, a, kw in wide]
     opt_futs = [pool.submit(optimal_job, i, graph_bp, n_reads, read_len)
                 for i in range(2 if quick else 4)]
-    log(f"phase 6 host work started: {len(wide)} plain frag_wide runs, "
-        f"{len(opt_futs)} optimal-mode reads")
+    log(f"host work started: {len(polish_plain)} plain polish runs, "
+        f"{len(seed_subs)} seeded CPU subsets, {len(wide)} plain frag_wide "
+        f"runs, {len(opt_futs)} optimal-mode reads")
 
     # ---- 2. kernels vs plain versions on the card
     frag = check_frag_all(model, reads, dev)
     carried_cases = check_carried_all(model, reads[:64], dev)
-    n_timed = 32 if quick else 128
-    pairs_all = stitched_pairs(model, reads[:n_timed])
-    # the main path's batch, whole: the warp entries' grid and the
-    # strides of planes and path are its read count.  The plain versions
-    # are timed here, in their one run on it
-    pol = {bw: check_polish(pairs_all, bw, dev, "stitched paths")
-           for bw in (8, 16, 32)}
-    pairs = pairs_all[:32]
-    checks = list(pol.values())
-    # every path cut to 48 bp: each band moves several words a column
-    checks.append(check_polish([(r, p[:48]) for r, p in pairs], 8, dev,
-                               "48 bp paths, multi-word shifts"))
-    # ordinary reads mixed with the hard cases (workload.polish_hard_pairs)
-    hard = [(r, p) for _, r, p in polish_hard_pairs(
-        5, 8, 1500 if quick else 3000)]
-    checks.append(check_polish(hard, 8, dev, "hard cases mixed in",
-                               small_cap=1600 if quick else 3200))
-    checks.append(check_polish(hard, 16, dev, "hard cases mixed in"))
-    pol_err = max(c[0] for c in checks)
-    walk_err = max(c[1] for c in checks)
-    # old and new design of both kernels, one call, at the main path's
-    # batch size
-    timed, bounds = {}, {}
-    for bw in (8, 16, 32):
-        timed[bw], k_in, dump, rows = time_polish_entries(
-            pairs_all, bw, dev)
-        bounds[bw] = {"polish_core": fill_bound(k_in, dump, bw),
-                      "polish_walk": walk_bound(rows, k_in,
-                                                dump[0].shape[0])}
-        for name, bnd in bounds[bw].items():
-            log(f"{name} bw={bw} R={len(pairs_all)}: bound {bnd[0]:.5f} ms "
-                f"by {bnd[1]} ({bnd[2]} bytes, {bnd[3]} operations)")
-        del k_in, dump, rows
+    pol = [check_polish(pr, bw, dev, label, f, timed=timed)
+           for (label, pr, bw, _, timed), f in zip(polish_cases,
+                                                    polish_plain)]
+    pol_main = {c["bw"]: c for c in pol if "fill_ms" in c}
 
     # ---- 3. the main path
     batch = 128
@@ -1320,8 +1598,30 @@ def main() -> int:
     log(f"4-read rescue check (compare_with_baseline): cuda alignments == "
         f"cpu plain-version alignments; launches "
         f"{json.dumps(rescue_launches)}")
+    # the bench pass again from a polish band of 12 words (ramp 12 -> 24
+    # -> 48): the run-time-bw entries
+    model12 = ChainerModel(g, mpc, index, ChainerConfig(polish_band_words=12),
+                           gx=model.gx, device="cuda")
+    _cuda.reset_launches()
+    t1 = time.perf_counter()
+    af12, ned12 = run_pass(model12, chunks, workers)
+    torch.cuda.synchronize()
+    wall12 = time.perf_counter() - t1
+    launches12 = _cuda.launches()
+    log(f"polish band 12: {n_reads} reads in {wall12:.3f} s = "
+        f"{n_reads / wall12:.2f} reads/s; aligned_fraction {af12:.4f}, "
+        f"mean_norm_edit_distance {ned12:.4f}; launches "
+        f"{json.dumps(launches12)}")
+    for name in ("frag_core",) + ANY_PATH_KERNELS:
+        if launches12[name] <= 0:
+            raise AssertionError(f"polish band 12: kernel {name} never "
+                                 "launched")
+    if af12 < ACC_ALIGNED_MIN or ned12 is None or ned12 > ACC_NORM_ED_MAX:
+        raise AssertionError(f"polish band 12: aligned_fraction {af12}, "
+                             f"mean_norm_edit_distance {ned12}")
 
     # ---- 4. a real-size graph
+    big_mem = None
     if not quick:
         gb, mpcb, indexb, _, readsb, build_b = bench_workload(
             BIG_GRAPH_BP, 128, 3000)
@@ -1343,6 +1643,8 @@ def main() -> int:
             f"mean_norm_edit_distance {ned:.4f}")
         if ok < 0.99 * 128:
             raise AssertionError(f"big graph: only {ok}/128 reads aligned")
+        big_mem = run_big_mem(gb, mpcb, indexb, readsb, dev)
+        del big, gb, mpcb, indexb
 
     # ---- 5. GA mode and the rescue on the golden sets
     gold = run_golden(dev)
@@ -1371,16 +1673,31 @@ def main() -> int:
             raise AssertionError(f"{name}: {stack} bytes stack frame, "
                                  f"{st} / {ld} bytes spilled")
     opt = check_optimal(model.gx, [f.result() for f in opt_futs])
-    pool.shutdown()
     seedless = run_seedless(model, reads, dev)
     outputs = run_outputs(graph_bp, reads, dev)
     g100 = run_golden100(dev)
 
+    # ---- 7. MEM, MUM and file seeds; two processes on one card
+    seed_subs["file seeds"] = pool.submit(
+        seeds_subset_job, graph_bp, n_reads, read_len, n_sub, {},
+        outputs["gam"])
+    seeded = {k: run_seeded(k, graph_bp, reads, dev, seed_subs[k], **v)
+              for k, v in seed_runs.items()}
+    two = run_two_processes(graph_bp, reads, dev)
+    seeded["file seeds"] = run_seeded("file seeds", graph_bp, reads, dev,
+                                      seed_subs["file seeds"],
+                                      gam=outputs["gam"])
+    if seeded["file seeds"]["aligned_fraction"] != 1.0:
+        raise AssertionError("file seeds: not every read aligned")
+    pool.shutdown()
+
     # No single PyTorch call computes any of these functions (a banded
     # bit-parallel DP over a graph band, its linear form with a dump, a
     # data-dependent backtrace), so library_ms is null throughout.  The
-    # polish rows are for bw=8, the band the main path starts every batch
-    # with; plain_ms is the plain version's one run on the same batch.
+    # warp polish rows are for bw=8, the band the main path starts every
+    # batch with, the run-time-bw rows for bw=12 (the band-12 pass's
+    # start); plain_ms is the plain version's one run on the same batch,
+    # on the CPU.
     def entry(name, source, replaces, err, ms, plain_ms, bnd, **more):
         return dict({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
@@ -1393,20 +1710,28 @@ def main() -> int:
                      "bound_bytes": bnd[2], "bound_operations": bnd[3]},
                     **more)
 
-    def by_bw(name, which):
-        return {str(bw): round(timed[bw][name][which], 4)
-                for bw in sorted(timed)}
+    def polish_entry(name, kind, bands, bw0, **more):
+        src = f"graphchainer_torch/csrc/polish_{kind}.cu"
+        tpu = ("graphchainer_tpu/ops/pallas_polish2.py:182" if kind == "core"
+               else "graphchainer_tpu/ops/linear_align.py:444")
+        key = "fill" if kind == "core" else "walk"
+        c0 = pol_main[bw0]
+        return entry(
+            name, src, tpu, 0, c0[f"{key}_ms"], c0[f"{key}_plain_ms"],
+            c0[f"{key}_bound"], reads=len(pairs_all),
+            ms_by_bw={str(bw): round(pol_main[bw][f"{key}_ms"], 4)
+                      for bw in bands},
+            plain_ms_by_bw={str(bw): round(pol_main[bw][f"{key}_plain_ms"], 1)
+                            for bw in bands},
+            bound_ms_by_bw={str(bw): round(pol_main[bw][f"{key}_bound"][0], 6)
+                            for bw in bands}, **more)
 
     frag_src = "graphchainer_torch/csrc/frag_core.cu"
     frag_tpu = "graphchainer_tpu/ops/pallas_frag.py:278"
     fm = frag["cases"][0]
     cm = next(c for c in carried_cases
               if c["label"] == "GA carried window padded to B=48")
-    core_src = "graphchainer_torch/csrc/polish_core.cu"
-    walk_src = "graphchainer_torch/csrc/polish_walk.cu"
-    core_tpu = "graphchainer_tpu/ops/pallas_polish2.py:182"
-    walk_tpu = "graphchainer_tpu/ops/linear_align.py:444"
-    b8 = bounds[8]
+    seeded_launches = {f"{k} pass": v["launches"] for k, v in seeded.items()}
     kernels = [
         entry("frag_core", frag_src, frag_tpu, 0, fm["ms"], fm["plain_ms"],
               fm["bound"], shape=fm["shape"] + " (the main path's batch of "
@@ -1415,7 +1740,9 @@ def main() -> int:
                           for c in frag["cases"]},
               plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
                                 for c in frag["cases"]},
-              ptxas={k: list(v) for k, v in frag["ptxas"].items()}),
+              ptxas={k: list(v) for k, v in frag["ptxas"].items()},
+              launches_by_path={k: v["frag_core"]
+                                for k, v in seeded_launches.items()}),
         entry("frag_core_carried", frag_src,
               "graphchainer_tpu/ops/frag_align.py:595", cm["err"], cm["ms"],
               cm["plain_ms"], cm["bound"],
@@ -1430,7 +1757,9 @@ def main() -> int:
                   "golden_cyclic (GA mode)": gold["golden_cyclic"][
                       "launches"]["frag_core_carried"],
                   "golden_badread (CLC, rescue)": gold["golden_badread"][
-                      "launches"]["frag_core_carried"]},
+                      "launches"]["frag_core_carried"],
+                  **{k: v["frag_core_carried"]
+                     for k, v in seeded_launches.items()}},
               ms_by_case={c["label"]: round(c["ms"], 4)
                           for c in carried_cases},
               plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
@@ -1438,24 +1767,20 @@ def main() -> int:
               bound_ms_by_case={c["label"]: round(c["bound"][0], 6)
                                 for c in carried_cases},
               on_main_path=True),
-        entry("polish_core", core_src, core_tpu, pol_err,
-              timed[8]["polish_core"]["warp"], pol[8][2], b8["polish_core"],
-              reads=len(pairs_all), ms_by_bw=by_bw("polish_core", "warp"),
-              bound_ms_by_bw={str(bw): round(bounds[bw]["polish_core"][0], 6)
-                              for bw in sorted(bounds)}),
-        entry("polish_walk", walk_src, walk_tpu, walk_err,
-              timed[8]["polish_walk"]["warp"], pol[8][3], b8["polish_walk"],
-              reads=len(pairs_all), ms_by_bw=by_bw("polish_walk", "warp"),
-              bound_ms_by_bw={str(bw): round(bounds[bw]["polish_walk"][0], 6)
-                              for bw in sorted(bounds)}),
-        entry("polish_core_serial", core_src, core_tpu, pol_err,
-              timed[8]["polish_core"]["serial"], pol[8][2],
-              b8["polish_core"], reads=len(pairs_all),
-              ms_by_bw=by_bw("polish_core", "serial")),
-        entry("polish_walk_serial", walk_src, walk_tpu, walk_err,
-              timed[8]["polish_walk"]["serial"], pol[8][3],
-              b8["polish_walk"], reads=len(pairs_all),
-              ms_by_bw=by_bw("polish_walk", "serial")),
+        polish_entry("polish_core", "core", WARP_BANDS, 8,
+                     launches_by_path={k: v["polish_core"]
+                                       for k, v in seeded_launches.items()}),
+        polish_entry("polish_walk", "walk", WARP_BANDS, 8,
+                     launches_by_path={k: v["polish_walk"]
+                                       for k, v in seeded_launches.items()}),
+        polish_entry("polish_core_any", "core", ANY_BANDS, 12,
+                     launches=launches12["polish_core_any"],
+                     launches_by_path={"bench pass, polish band 12":
+                                       launches12["polish_core_any"]}),
+        polish_entry("polish_walk_any", "walk", ANY_BANDS, 12,
+                     launches=launches12["polish_walk_any"],
+                     launches_by_path={"bench pass, polish band 12":
+                                       launches12["polish_walk_any"]}),
     ]
     wm = wide_checks[0]
     kernels.append(entry(

@@ -114,6 +114,16 @@ class GraphTensors:
             self.__dict__["_split"] = got
         return got
 
+    def find_splits(self, di: np.ndarray, off: np.ndarray):
+        """(split node ids, offsets within the split) of (digraph node,
+        offset) arrays (graphchainer_tpu's GraphTensors.find_splits), over
+        the one published split_lookup tuple."""
+        keys_sorted, vals = self.split_lookup()
+        off = np.asarray(off, dtype=np.int64)
+        keys = (np.asarray(di, dtype=np.int64) << 33) | off
+        v = vals[np.searchsorted(keys_sorted, keys, side="right") - 1]
+        return v, off - self.g.orig_offset[v].astype(np.int64)
+
     @property
     def orig_offset64(self) -> np.ndarray:
         got = self.__dict__.get("_orig_offset64")

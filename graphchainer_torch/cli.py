@@ -4,10 +4,8 @@
       [--mode ga|optimal] [--seedless-DP] [-t N] [--batch-size N] \
       [--verbose] [--device cuda]
 
-The flags are graphchainer_tpu's; -a takes .gaf, .gam and .json, and -g
-.gfa and .vg.  Flags that are not ported yet (MEM/MUM/MXM and file
-seeds, multi-process runs) are accepted by the parser and rejected with a
-message that names them.
+The flags are graphchainer_tpu's, every one of them, with its defaults;
+-a takes .gaf, .gam and .json, and -g .gfa and .vg.
 """
 from __future__ import annotations
 
@@ -17,20 +15,9 @@ import sys
 
 from graphchainer_torch import constants
 from graphchainer_torch.models.chainer import ChainerConfig
-from graphchainer_torch.ops.polish_kernel import BAND_WORDS
 from graphchainer_torch.graph.simulate import generate_path
 from graphchainer_torch.pipeline import (PipelineParams, align_reads,
                                          load_graph)
-
-# (dest, flags, argparse kwargs, value meaning "not set")
-_NOT_PORTED = [
-    ("seeds_file", ("--seeds-file",), dict(default=None), None),
-    ("seeds_mem_count", ("--seeds-mem-count",), dict(type=int, default=0),
-     0),
-    ("seeds_mum_count", ("--seeds-mum-count",), dict(type=int, default=0),
-     0),
-    ("num_processes", ("--num-processes",), dict(type=int, default=1), 1),
-]
 
 # the alignment selection flags and the method each picks
 _SELECTION = [("all_alignments", "--all-alignments", "All"),
@@ -101,6 +88,15 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("-t", "--threads", type=int, default=None,
                      help="batches aligned concurrently (default 3)")
     gen.add_argument("--verbose", action="store_true")
+    gen.add_argument("--num-processes", type=int, default=1,
+                     help="multi-process execution: total process count "
+                          "(all processes run the same command; reads "
+                          "stripe by index, outputs get .partI suffixes)")
+    gen.add_argument("--process-id", type=int, default=0,
+                     help="this process's id in [0, num-processes)")
+    gen.add_argument("--coordinator", default="127.0.0.1:43231",
+                     help="torch.distributed rendezvous host:port "
+                          "(process 0's address)")
     gen.add_argument("--batch-size", type=int, default=64)
     gen.add_argument("--mpc-index", default=None)
     gen.add_argument("--minimizer-index", default=None)
@@ -116,6 +112,20 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--graph-statistics", action="store_true",
                      help="print graph statistics and exit")
     seed = p.add_argument_group("seeding")
+    seed.add_argument("--seeds-mem-count", type=int, default=0,
+                      help="use MEM seeds: max occurrences per match "
+                           "(reference --seeds-mem-count)")
+    seed.add_argument("--seeds-mum-count", type=int, default=0,
+                      help="use MUM seeds (unique matches) "
+                           "(reference --seeds-mum-count)")
+    seed.add_argument("--seeds-mxm-length", type=int, default=20,
+                      help="min MUM/MEM length (reference "
+                           "--seeds-mxm-length)")
+    seed.add_argument("--seeds-mxm-cache-prefix", default=None,
+                      help="suffix-array cache file prefix (reference "
+                           "--seeds-mxm-cache-prefix)")
+    seed.add_argument("--seeds-file", default=None,
+                      help="external seeds from a .gam file (reference -s)")
     seed.add_argument("--seeds-minimizer-length", type=int,
                       default=constants.DEFAULT_SEED_MINIMIZER_LENGTH)
     seed.add_argument("--seeds-minimizer-windowsize", type=int,
@@ -156,22 +166,11 @@ def build_parser() -> argparse.ArgumentParser:
     sel.add_argument("--evalue-legacy-score", action="store_true",
                      help="use the reference binary's literal alignment "
                           "score sign for E-values")
-    np_ = p.add_argument_group("not ported yet (rejected when set)")
-    for dest, flags, kw, _ in _NOT_PORTED:
-        np_.add_argument(*flags, dest=dest, **kw)
     return p
 
 
 def params_from_args(args) -> PipelineParams:
-    unported = [flags[-1] for dest, flags, _, unset in _NOT_PORTED
-                if getattr(args, dest) != unset]
-    if unported:
-        raise SystemExit("graphchainer-torch: error: not ported to the "
-                         "PyTorch package yet: " + ", ".join(unported))
     mode = "ga" if args.no_colinear_chaining else args.mode
-    if args.polish_band not in BAND_WORDS:
-        raise SystemExit("graphchainer-torch: error: --polish-band must be "
-                         f"one of {BAND_WORDS} (the polish kernel's bands)")
     if args.precise_clipping is not None \
             and not 0.0 < args.precise_clipping < 1.0:
         raise SystemExit("graphchainer-torch: error: --precise-clipping "
@@ -221,6 +220,12 @@ def params_from_args(args) -> PipelineParams:
         seed_w=args.seeds_minimizer_windowsize,
         discard_fraction=args.seeds_minimizer_ignore_frequent,
         chainer=cfg, mode=mode,
+        seed_file=args.seeds_file,
+        mem_count=args.seeds_mem_count, mum_count=args.seeds_mum_count,
+        mxm_length=args.seeds_mxm_length,
+        mxm_cache_prefix=args.seeds_mxm_cache_prefix,
+        num_processes=args.num_processes, process_id=args.process_id,
+        coordinator=args.coordinator,
         cigar_match_mismatch=args.cigar_match_mismatch,
         device=args.device, verbose=args.verbose,
         x_drop=args.x_drop, precise_clipping=args.precise_clipping,

@@ -43,12 +43,20 @@
 // one sector per lane and store) take over.  The dump's bytes at the
 // memory rate lie an order of magnitude and more below (PERF.md).
 //
-// polish_core_serial_launch (any bw; the wrapper takes it for bw 1, 2, 4,
-// 64, and the smoke run times it as the yardstick): one thread per read,
-// band state in registers, dump indexed [col][word][read] so a warp's
-// stores are coalesced.  A band shift of k words is k single-word shifts
-// that fill with bot_sb + 32 (t + 1).  Time does not fall with the number
-// of reads: it is one chain of P x bw dependent word steps.
+// polish_core_any_launch (any bw >= 1, the band width a run-time argument;
+// the wrapper takes it for every width but 8, 16 and 32, which the
+// --polish-band ramp from another start reaches: 3 -> 6 -> 12 -> 24 -> 48):
+// one thread per read, the dump indexed [col][word][read] so a warp's loads
+// and stores are coalesced.  A band of any width does not fit a thread's
+// registers, so the thread keeps no band state of its own: word w of
+// column col starts from word w + shift of column col - 1, read back from
+// the dump where the same thread wrote it one column earlier (shift: how
+// far the band's top moved, at most bw), or, below the old bottom word,
+// from the all-insertion fill (its sb + 32 per word).  Those loads do not
+// depend on the carry chain, so they issue ahead of it.  What bounds it:
+// one chain of P x bw dependent word steps per read, each waiting on a
+// cached load of the word written a column before; the bytes lie far below
+// (PERF.md).
 //
 // Both load the band's plane words directly (the Pallas kernel's rolling
 // window and its fast / slow branches only ever expose the first bw window
@@ -83,46 +91,53 @@ __device__ __forceinline__ int advance(uint32_t& vp, uint32_t& vn, int& sb,
 }
 
 // The band's top word per column: a closed form of the column, monotone.
-template <int BW>
 struct Band {
-  int pl1, ub;
+  int pl1, ub, half;
   float scale;
-  __device__ Band(int rlen, int plen) {
+  __device__ Band(int rlen, int plen, int bw) {
     pl1 = max(plen, 1);
     const int rw_cap = (rlen + W - 1) / W;   // read_len >= 0
-    ub = max(rw_cap - BW, 0);
+    ub = max(rw_cap - bw, 0);
+    half = bw / 2;
     scale = __fdiv_rn((float)rlen, (float)pl1);
   }
   __device__ __forceinline__ int base(int col) const {
     const int cc = min(col, pl1 - 1);
     const float target = __fmul_rn((float)(cc + 1), scale);
-    const int b = (int)__fmul_rn(target, 1.0f / W) - BW / 2;
+    const int b = (int)__fmul_rn(target, 1.0f / W) - half;
     return min(max(b, 0), ub);
   }
 };
 
-// Where word w of column col of read r lies in the dump.
-template <int BW, bool READ_MAJOR>
-__device__ __forceinline__ size_t dump_at(int col, int w, int r, int R,
-                                          int P) {
-  return READ_MAJOR ? ((size_t)r * P + col) * BW + w
-                    : ((size_t)col * BW + w) * R + r;
+// Where word w of column col of read r lies in a read-major dump.
+__device__ __forceinline__ size_t dump_at(int col, int w, int r, int P,
+                                          int bw) {
+  return ((size_t)r * P + col) * bw + w;
 }
 
-template <bool READ_MAJOR>
-__device__ __forceinline__ size_t base_at(int col, int r, int R, int P) {
-  return READ_MAJOR ? (size_t)r * P + col : (size_t)col * R + r;
+// The match bits of band row word row_w against path mask pmm.
+__device__ __forceinline__ uint32_t eq_of(const uint32_t* __restrict__ planes,
+                                          uint32_t pmm, int row_w, int r,
+                                          int R, int RW) {
+  uint32_t eq = 0;
+  if (row_w < RW) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if ((pmm >> k) & 1u) eq |= planes[((size_t)k * RW + row_w) * R + r];
+  }
+  return eq;
 }
 
-// One read, column by column, by one thread.
-template <int BW, bool READ_MAJOR>
+// One read, column by column, by one thread, band state in registers: the
+// warp entry's route for a read whose band moves several words a column.
+template <int BW>
 __device__ void fill_serial(const uint32_t* __restrict__ planes,
                             const uint32_t* __restrict__ path,
                             int rlen, int plen, int r, int R, int RW, int P,
                             uint32_t* __restrict__ dvp,
                             uint32_t* __restrict__ dvn,
                             int* __restrict__ dsb, int* __restrict__ dbase) {
-  const Band<BW> band(rlen, plen);
+  const Band band(rlen, plen, BW);
   uint32_t vp[BW], vn[BW];
   int sb[BW];
   int base = band.base(0);
@@ -146,39 +161,66 @@ __device__ void fill_serial(const uint32_t* __restrict__ planes,
     int hin = 1;
 #pragma unroll
     for (int w = 0; w < BW; ++w) {
-      const int row_w = nb + w;
-      uint32_t eq = 0;
-      if (row_w < RW) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if ((pmm >> k) & 1u) eq |= planes[((size_t)k * RW + row_w) * R + r];
-      }
-      hin = advance(vp[w], vn[w], sb[w], eq, hin);
-      const size_t o = dump_at<BW, READ_MAJOR>(col, w, r, R, P);
+      hin = advance(vp[w], vn[w], sb[w], eq_of(planes, pmm, nb + w, r, R, RW),
+                    hin);
+      const size_t o = dump_at(col, w, r, P, BW);
       dvp[o] = vp[w];
       dvn[o] = vn[w];
       dsb[o] = sb[w];
     }
-    dbase[base_at<READ_MAJOR>(col, r, R, P)] = nb;
+    dbase[(size_t)r * P + col] = nb;
     base = nb;
   }
 }
 
-template <int BW>
+// The run-time-bw entry.  The dump pointers are read as well as written
+// (the previous column's words are this column's state), so they are
+// neither const nor __restrict__: no load may take the read-only path.
 __global__ void __launch_bounds__(64)
-polish_core_serial_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
-                          const uint32_t* __restrict__ path,     // (P, R)
-                          const int* __restrict__ read_len,      // (R,)
-                          const int* __restrict__ path_len,      // (R,)
-                          int R, int RW, int P,
-                          uint32_t* __restrict__ dvp,            // (P, BW, R)
-                          uint32_t* __restrict__ dvn,            // (P, BW, R)
-                          int* __restrict__ dsb,                 // (P, BW, R)
-                          int* __restrict__ dbase) {             // (P, R)
+polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
+                       const uint32_t* __restrict__ path,     // (P, R)
+                       const int* __restrict__ read_len,      // (R,)
+                       const int* __restrict__ path_len,      // (R,)
+                       int R, int RW, int P, int bw,
+                       uint32_t* dvp,                         // (P, bw, R)
+                       uint32_t* dvn,                         // (P, bw, R)
+                       int* dsb,                              // (P, bw, R)
+                       int* __restrict__ dbase) {             // (P, R)
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  fill_serial<BW, false>(planes, path, read_len[r], path_len[r], r, R, RW, P,
-                         dvp, dvn, dsb, dbase);
+  const Band band(read_len[r], path_len[r], bw);
+  auto at = [&](int col, int w) { return ((size_t)col * bw + w) * R + r; };
+  int base = band.base(0);
+  for (int col = 0; col < P; ++col) {
+    const uint32_t pmm = path[(size_t)col * R + r];
+    const int nb = max(band.base(col), base);
+    const int shift = min(max(nb - base, 0), bw);
+    const int bot = col ? dsb[at(col - 1, bw - 1)] : 0;
+    int hin = 1;
+#pragma unroll 4
+    for (int w = 0; w < bw; ++w) {
+      const int j = w + shift;
+      uint32_t vp = ONES, vn = 0;
+      int sb;
+      if (col == 0) {                 // the boundary column's words
+        sb = base * W + (w + 1) * W;
+      } else if (j < bw) {            // the word that held these rows
+        const size_t o = at(col - 1, j);
+        vp = dvp[o];
+        vn = dvn[o];
+        sb = dsb[o];
+      } else {                        // below the old bottom word
+        sb = bot + (j - bw + 1) * W;
+      }
+      hin = advance(vp, vn, sb, eq_of(planes, pmm, nb + w, r, R, RW), hin);
+      const size_t o = at(col, w);
+      dvp[o] = vp;
+      dvn[o] = vn;
+      dsb[o] = sb;
+    }
+    dbase[(size_t)col * R + r] = nb;
+    base = nb;
+  }
 }
 
 constexpr int RING_STEPS = 256;            // steps between ring refills
@@ -202,14 +244,14 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
   const int lane = threadIdx.x;
   const int rlen = read_len[r];
   const int plen = path_len[r];
-  const Band<BW> band(rlen, plen);
+  const Band band(rlen, plen, BW);
   // target moves by `scale` rows a column: up to 16 (plus float rounding
   // far below 16) that is at most half a word, so the band's top moves by
   // 0 or 1 words.  Beyond it, the read takes the serial loop.
   if (!(band.scale <= MAX_WAVE_SCALE)) {
     if (lane == 0)
-      fill_serial<BW, true>(planes, path, rlen, plen, r, R, RW, P, dvp, dvn,
-                            dsb, dbase);
+      fill_serial<BW>(planes, path, rlen, plen, r, R, RW, P, dvp, dvn, dsb,
+                      dbase);
     return;
   }
 
@@ -291,11 +333,11 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
         sb_prev = before;
         hout = h;
         fresh = false;
-        const size_t o = dump_at<BW, true>(p, a - nb, r, R, P);
+        const size_t o = dump_at(p, a - nb, r, P, BW);
         dvp[o] = v_p;
         dvn[o] = v_n;
         dsb[o] = v_s;
-        if (a == nb) dbase[base_at<true>(p, r, R, P)] = nb;
+        if (a == nb) dbase[(size_t)r * P + p] = nb;
       }
       prepare(s + 1);
     }
@@ -314,16 +356,6 @@ struct Args {
   int* dbase;
   cudaStream_t stream;
 };
-
-template <int BW>
-cudaError_t launch_serial(const Args& a) {
-  const int threads = 32;
-  const int blocks = (a.R + threads - 1) / threads;
-  polish_core_serial_kernel<BW><<<blocks, threads, 0, a.stream>>>(
-      a.planes, a.path, a.read_len, a.path_len, a.R, a.RW, a.P, a.dvp, a.dvn,
-      a.dsb, a.dbase);
-  return cudaGetLastError();
-}
 
 template <int BW>
 cudaError_t launch_warp(const Args& a) {
@@ -362,25 +394,20 @@ extern "C" int polish_core_launch(const void* planes, const void* path,
   }
 }
 
-// Thread per read; the dump is written column-major: dvp / dvn / dsb as
-// (P, bw, R), dbase as (P, R).
-extern "C" int polish_core_serial_launch(const void* planes, const void* path,
-                                         const void* read_len,
-                                         const void* path_len, int R, int RW,
-                                         int P, int bw, void* dvp, void* dvn,
-                                         void* dsb, void* dbase,
-                                         void* stream) {
+// Thread per read, any bw >= 1; the dump is written column-major: dvp /
+// dvn / dsb as (P, bw, R), dbase as (P, R).
+extern "C" int polish_core_any_launch(const void* planes, const void* path,
+                                      const void* read_len,
+                                      const void* path_len, int R, int RW,
+                                      int P, int bw, void* dvp, void* dvn,
+                                      void* dsb, void* dbase, void* stream) {
   if (R <= 0 || P <= 0) return 0;
-  const Args a = make_args(planes, path, read_len, path_len, R, RW, P, dvp,
-                           dvn, dsb, dbase, stream);
-  switch (bw) {
-    case 1: return (int)launch_serial<1>(a);
-    case 2: return (int)launch_serial<2>(a);
-    case 4: return (int)launch_serial<4>(a);
-    case 8: return (int)launch_serial<8>(a);
-    case 16: return (int)launch_serial<16>(a);
-    case 32: return (int)launch_serial<32>(a);
-    case 64: return (int)launch_serial<64>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bw <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = 32;
+  const int blocks = (R + threads - 1) / threads;
+  polish_core_any_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)planes, (const uint32_t*)path, (const int*)read_len,
+      (const int*)path_len, R, RW, P, bw, (uint32_t*)dvp, (uint32_t*)dvn,
+      (int*)dsb, (int*)dbase);
+  return (int)cudaGetLastError();
 }

@@ -33,11 +33,12 @@
 // sit in registers.  All lanes take the same steps (broadcast loads, no
 // divergence); lane 0 writes the row, and all lanes write the padding.
 //
-// polish_walk_serial_launch (any bw; dump column-major, [col][word][read],
-// as polish_core_serial_launch writes it): one thread per read, dump cells
-// read straight from device memory, two chained loads a cell (base, then
-// the word) at a stride of R words.  Kept as the yardstick and for the
-// band widths the warp entry is not built for.
+// polish_walk_any_launch (any bw >= 1, the band width a run-time argument;
+// dump column-major, [col][word][read], as polish_core_any_launch writes
+// it; the wrapper takes it for every width but 8, 16 and 32): one thread
+// per read, dump cells read straight from device memory, two chained
+// loads a cell (base, then the word) at a stride of R words, coalesced
+// across the warp's reads.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -312,7 +313,7 @@ __device__ void walk(Dump& d, ReadPlanes& rp, int rl, int pl, int RW,
 }
 
 __global__ void __launch_bounds__(64)
-polish_walk_serial_kernel(GlobalDump d,
+polish_walk_any_kernel(GlobalDump d,
                           const uint32_t* __restrict__ planes,  // (4, RW, R)
                           const int* __restrict__ read_len,
                           const int* __restrict__ path_len, int RW,
@@ -397,23 +398,22 @@ extern "C" int polish_walk_launch(const void* dvp, const void* dvn,
   }
 }
 
-// Thread per read over a column-major dump: dvp / dvn / dsb (P, bw, R),
-// dbase (P, R).
-extern "C" int polish_walk_serial_launch(const void* dvp, const void* dvn,
-                                         const void* dsb, const void* dbase,
-                                         const void* planes, const void* path,
-                                         const void* read_len,
-                                         const void* path_len, int R, int RW,
-                                         int P, int bw, int max_steps,
-                                         int ops_cap, void* out,
-                                         void* stream) {
+// Thread per read over a column-major dump, any bw >= 1: dvp / dvn / dsb
+// (P, bw, R), dbase (P, R).
+extern "C" int polish_walk_any_launch(const void* dvp, const void* dvn,
+                                      const void* dsb, const void* dbase,
+                                      const void* planes, const void* path,
+                                      const void* read_len,
+                                      const void* path_len, int R, int RW,
+                                      int P, int bw, int max_steps,
+                                      int ops_cap, void* out, void* stream) {
   if (R <= 0) return 0;
   if (bad_sizes(P, bw, ops_cap)) return (int)cudaErrorInvalidValue;
   GlobalDump d{(const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
                (const int*)dbase, (const uint32_t*)path, P, bw, R, 0};
   const int threads = 32;
   const int blocks = (R + threads - 1) / threads;
-  polish_walk_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  polish_walk_any_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       d, (const uint32_t*)planes, (const int*)read_len,
       (const int*)path_len, RW, max_steps, ops_cap, (long long*)out);
   return (int)cudaGetLastError();

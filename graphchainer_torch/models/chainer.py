@@ -3,7 +3,9 @@
 Port of graphchainer_tpu/models/chainer.py (CLC mode).  Per batch of
 reads:
 
-  1. seed+window    minimizer seeds and fragment windows (native C++)
+  1. seed+window    minimizer seeds and fragment windows (native C++);
+                    file seeds or a seeder's (MEM / MUM, index/mem.py)
+                    take the numpy window path
   2. band_build     fragment bands and read planes (native C++ + numpy)
   3. frag_kernel    the fragment DP on the device (CUDA kernel frag_core)
   4. join           backwalk + forward/backward join into anchors (native)
@@ -104,6 +106,7 @@ class ChainerModel:
 
     def __init__(self, g: AlignmentGraph, mpc: MPCIndex,
                  index: MinimizerIndex, cfg: Optional[ChainerConfig] = None,
+                 file_seeds: Optional[dict] = None, seed_fn=None,
                  gx: Optional[GraphTensors] = None, device="cuda"):
         self.g = g
         self.mpc = mpc
@@ -124,6 +127,12 @@ class ChainerModel:
         self._baseline = None
         indeg = np.diff(g.in_ptr)
         self._dense_graph = bool(np.mean(indeg > self.cfg.max_in) > 0.02)
+        # external seeds: read name -> [SeedHit] (reference .gam seed
+        # files, src/Aligner.cpp:1169-1190)
+        self.file_seeds = file_seeds
+        # a seeder in place of the minimizers: (name, seq) -> [SeedHit]
+        # (the MEM / MUM seeder, index/mem.py)
+        self.seed_fn = seed_fn
 
     def escalated(self) -> "ChainerModel":
         """Wide-band sibling model for the escalation retry (shares the
@@ -138,8 +147,9 @@ class ChainerModel:
                                compare_with_baseline=False,
                                auto_compare_dense=False)
                 self._escalated = ChainerModel(
-                    self.g, self.mpc, self.index, wide, gx=self.gx,
-                    device=self.device)
+                    self.g, self.mpc, self.index, wide,
+                    file_seeds=self.file_seeds, seed_fn=self.seed_fn,
+                    gx=self.gx, device=self.device)
                 self._escalated._device_lock = self._device_lock
             return self._escalated
 
@@ -160,11 +170,134 @@ class ChainerModel:
             return self._baseline
 
     def _fragment_jobs_cols(self, reads: Sequence[Tuple[str, str]]):
+        """Seeds + fragment windows -> the columnar job batch: (JobCols,
+        frags [nfrag, 7] int64 rows of (read_idx, l, r, fi_fwd, fi_bwd,
+        seed split, seed off), seed_counts).  Minimizer seeds run the
+        native seed_window_batch; file seeds and a seed_fn run the numpy
+        window path (graphchainer_tpu/models/chainer.py:222-354)."""
         cfg = self.cfg
-        return native.seed_window_batch(
-            self.index, self.gx, reads, cfg.seed_density,
-            cfg.colinear_split_len, cfg.colinear_split_gap,
-            cfg.seeds_per_fragment)
+        if self.file_seeds is None and self.seed_fn is None:
+            return native.seed_window_batch(
+                self.index, self.gx, reads, cfg.seed_density,
+                cfg.colinear_split_len, cfg.colinear_split_gap,
+                cfg.seeds_per_fragment)
+        return self._seed_windows(reads)
+
+    def _seed_windows(self, reads: Sequence[Tuple[str, str]]):
+        """The window path over the given seeds, for all reads at once:
+        each seed goes to every window of colinear_split_len rows (every
+        colinear_split_gap) that it anchors, near-duplicates (same read,
+        window, node and 8-base offset bucket) collapse to the best, and
+        the seeds_per_fragment best of each window become a forward job
+        and, where the seed lies past the window's start, a backward
+        one."""
+        cfg = self.cfg
+        seed_counts = [0] * len(reads)
+        flen, sep = cfg.colinear_split_len, cfg.colinear_split_gap
+        kper = cfg.seeds_per_fragment
+        parts = []
+        for ri, (name, seq) in enumerate(reads):
+            fs = (self.seed_fn(name, seq) if self.seed_fn is not None
+                  else self.file_seeds.get(name, []))
+            if not fs:
+                continue
+            seed_counts[ri] = len(fs)
+            if len(seq) < 5:
+                continue
+            parts.append((np.full(len(fs), ri, dtype=np.int64),
+                          np.array([s.di_node for s in fs], dtype=np.int64),
+                          np.array([s.node_offset for s in fs],
+                                   dtype=np.int64),
+                          np.array([s.seq_pos for s in fs], dtype=np.int64),
+                          np.array([s.goodness for s in fs]),
+                          np.array([s.match_len for s in fs],
+                                   dtype=np.int64)))
+        z = np.zeros(0, np.int64)
+        empty = (native.JobCols(seed=z, trim=z, rev=np.zeros(0, bool),
+                                read_idx=z, lo=z, hi=z),
+                 np.zeros((0, 7), dtype=np.int64), seed_counts)
+        if not parts:
+            return empty
+        rid, di, off, sp, good, mlen = (np.concatenate(a)
+                                        for a in zip(*parts))
+        rlen = np.array([len(s) for _, s in reads], dtype=np.int64)
+        rl = rlen[rid]
+        # long seeds (MEMs can exceed the fragment length) anchor a window
+        # by their start; their effective length is clamped so that they
+        # are not dropped for spanning window boundaries
+        mlen_eff = np.minimum(mlen, max(flen // 2, 1))
+        short = rl < flen
+        nwin = np.where(short, 1, (rl - flen) // sep + 1)
+        wmin = np.where(short, 0,
+                        np.maximum(-(-(sp + mlen_eff - flen) // sep), 0))
+        wmax = np.where(short, np.where(sp + mlen_eff <= rl, 0, -1),
+                        np.minimum(sp // sep, nwin - 1))
+        reps = np.where(wmax >= wmin, wmax - wmin + 1, 0)
+        total = int(reps.sum())
+        if total == 0:
+            return empty
+        sidx = np.repeat(np.arange(len(rid)), reps)
+        widx = (np.arange(total) - np.repeat(np.cumsum(reps) - reps, reps)
+                + np.repeat(wmin, reps))
+        # near-duplicate collapse: lexsort on the raw columns (a packed
+        # key overflows on chromosome-scale node offsets)
+        obkt = off[sidx] >> 3
+        dnode = di[sidx]
+        srid = rid[sidx]
+        o = np.lexsort((-good[sidx], obkt, dnode, widx, srid))
+        first = np.ones(total, dtype=bool)
+        first[1:] = ((srid[o][1:] != srid[o][:-1])
+                     | (widx[o][1:] != widx[o][:-1])
+                     | (dnode[o][1:] != dnode[o][:-1])
+                     | (obkt[o][1:] != obkt[o][:-1]))
+        o = o[first]
+        # the kper best of each (read, window) by goodness
+        o2 = o[np.lexsort((-good[sidx[o]], widx[o], srid[o]))]
+        w_sorted, r_sorted = widx[o2], srid[o2]
+        grp_first = np.ones(len(o2), dtype=bool)
+        grp_first[1:] = ((w_sorted[1:] != w_sorted[:-1])
+                         | (r_sorted[1:] != r_sorted[:-1]))
+        grp_id = np.cumsum(grp_first) - 1
+        rank = np.arange(len(o2)) - np.nonzero(grp_first)[0][grp_id]
+        o2 = o2[rank < kper]
+        v_all, voff_all = self.gx.find_splits(di[sidx[o2]], off[sidx[o2]])
+        v_all = v_all.astype(np.int64)
+        voff_all = voff_all.astype(np.int64)
+        frid = srid[o2]
+        short_q = short[sidx[o2]]
+        fl = np.where(short_q, 0, widx[o2] * sep)
+        fr_ = np.where(short_q, rl[sidx[o2]], fl + flen)
+        spq = sp[sidx[o2]]
+        has_bwd = spq > fl
+        job_start = np.zeros(len(o2), dtype=np.int64)
+        np.cumsum(1 + has_bwd[:-1], out=job_start[1:])
+        fi_fwd = job_start
+        fi_bwd = np.where(has_bwd, job_start + 1, -1)
+        F = int(job_start[-1]) + 1 + int(has_bwd[-1]) if len(o2) else 0
+        seed = np.empty(F, dtype=np.int64)
+        trim = np.empty(F, dtype=np.int64)
+        rev = np.zeros(F, dtype=bool)
+        read_idx = np.empty(F, dtype=np.int64)
+        lo = np.empty(F, dtype=np.int64)
+        hi = np.empty(F, dtype=np.int64)
+        seed[fi_fwd] = v_all
+        trim[fi_fwd] = self.g.node_len[v_all].astype(np.int64) - voff_all
+        read_idx[fi_fwd] = frid
+        lo[fi_fwd] = spq
+        hi[fi_fwd] = fr_
+        bsel = np.nonzero(has_bwd)[0]
+        bpos = fi_bwd[bsel]
+        seed[bpos] = v_all[bsel]
+        trim[bpos] = voff_all[bsel]
+        rev[bpos] = True
+        read_idx[bpos] = frid[bsel]
+        lo[bpos] = fl[bsel]
+        hi[bpos] = spq[bsel]
+        frags = np.stack([frid, fl, fr_, fi_fwd, fi_bwd, v_all, voff_all],
+                         axis=1)
+        return (native.JobCols(seed=seed, trim=trim, rev=rev,
+                               read_idx=read_idx, lo=lo, hi=hi),
+                frags, seed_counts)
 
     def align_batch(self, reads: Sequence[Tuple[str, str]]
                     ) -> List[ReadAlignment]:

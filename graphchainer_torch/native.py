@@ -31,6 +31,7 @@ build_seconds = None        # wall time of the g++ run that produced the
                             # loaded library (0.0 when it was already built)
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _ptr(a: np.ndarray):
@@ -86,6 +87,9 @@ def get_lib() -> ctypes.CDLL:
                                    + [_I64P, _I64P, _I64P])
         lib.band_build_multi.restype = ctypes.c_int64
         lib.band_build_multi.argtypes = lib.band_build.argtypes
+        lib.suffix_array.argtypes = [_U8P, ctypes.c_int64, _I64P]
+        lib.matching_stats.argtypes = [_U8P, ctypes.c_int64, _I64P, _U8P,
+                                       ctypes.c_int64, _I64P, _I64P, _I64P]
         _I8P = ctypes.POINTER(ctypes.c_int8)
         lib.join_anchors.restype = ctypes.c_void_p
         lib.join_anchors.argtypes = ([ctypes.c_int64] * 4 + [_I8P]
@@ -591,6 +595,33 @@ def seed_window_batch(index, gx, reads, density: float, flen: int,
                  rev=rev[:F].astype(bool), read_idx=read_idx[:F],
                  lo=lo[:F], hi=hi[:F])
     return jc, frags[:nfrag * 7].reshape(nfrag, 7), seed_counts.tolist()
+
+
+def suffix_array(text: np.ndarray) -> np.ndarray:
+    """Suffix array of a uint8 text (prefix doubling, offline build)."""
+    lib = get_lib()
+    text = np.ascontiguousarray(text, dtype=np.uint8)
+    sa = np.empty(len(text), dtype=np.int64)
+    lib.suffix_array(text.ctypes.data_as(_U8P), ctypes.c_int64(len(text)),
+                     _ptr(sa))
+    return sa
+
+
+def matching_stats(text: np.ndarray, sa: np.ndarray, read: np.ndarray):
+    """Per read position: (longest match length, SA interval lo, hi)."""
+    lib = get_lib()
+    text = np.ascontiguousarray(text, dtype=np.uint8)
+    sa = np.ascontiguousarray(sa, dtype=np.int64)
+    read = np.ascontiguousarray(read, dtype=np.uint8)
+    m = len(read)
+    ms_len = np.empty(m, dtype=np.int64)
+    ms_lo = np.empty(m, dtype=np.int64)
+    ms_hi = np.empty(m, dtype=np.int64)
+    lib.matching_stats(text.ctypes.data_as(_U8P), ctypes.c_int64(len(text)),
+                       _ptr(sa), read.ctypes.data_as(_U8P),
+                       ctypes.c_int64(m), _ptr(ms_len), _ptr(ms_lo),
+                       _ptr(ms_hi))
+    return ms_len, ms_lo, ms_hi
 
 
 def minimizer_build(seq_bytes: np.ndarray, seq_off: np.ndarray, k: int,

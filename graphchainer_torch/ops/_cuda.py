@@ -37,9 +37,8 @@ build_seconds = None        # wall time of the build that produced the
 
 _count_lock = threading.Lock()
 _launches = {"frag_core": 0, "frag_core_carried": 0, "frag_wide": 0,
-             "polish_core": 0,
-             "polish_walk": 0, "polish_core_serial": 0,
-             "polish_walk_serial": 0}
+             "polish_core": 0, "polish_walk": 0, "polish_core_any": 0,
+             "polish_walk_any": 0}
 
 
 def count_launch(name: str) -> None:
@@ -125,10 +124,10 @@ def lib() -> ctypes.CDLL:
                                                + [P] * 10 + [P])
         L.frag_wide_launch.restype = I
         L.frag_wide_launch.argtypes = [P] * 9 + [I] * 8 + [P] * 8
-        for fn in (L.polish_core_launch, L.polish_core_serial_launch):
+        for fn in (L.polish_core_launch, L.polish_core_any_launch):
             fn.restype = I
             fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
-        for fn in (L.polish_walk_launch, L.polish_walk_serial_launch):
+        for fn in (L.polish_walk_launch, L.polish_walk_any_launch):
             fn.restype = I
             fn.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
         L.gct_error_string.restype = ctypes.c_char_p

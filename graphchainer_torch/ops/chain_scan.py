@@ -34,8 +34,9 @@ class ChainScanResult(NamedTuple):
 
 
 def chain_scan(x, y, valid, ev_type, ev_anchor, ev_k, a_kmask, ev_group,
-               device=None) -> ChainScanResult:
-    """Run the chaining DP for a batch of reads on `device`.
+               device="cuda") -> ChainScanResult:
+    """Run the chaining DP for a batch of reads on `device` (the card
+    unless the caller asks for the CPU).
 
     x, y:      (R, A) anchor read intervals;  valid: (R, A) bool
     ev_type:   (R, E) EV_* (EV_NONE padding);  ev_anchor: (R, E)
@@ -48,7 +49,7 @@ def chain_scan(x, y, valid, ev_type, ev_anchor, ev_k, a_kmask, ev_group,
         raise ValueError(
             f"chain_scan int32 packing overflow: read coverage {max_cov} x "
             f"(A={A} + 2) >= 2^31; reduce the anchor cap or split the read")
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = torch.device(device)
 
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)

@@ -12,12 +12,14 @@ tensor.
 
 Each kernel has two entries, and the band width alone decides which one
 a call takes (entry_for): the warp-per-read entries are built for bw 8,
-16 and 32, the widths of the polish band ramp; every other width of
-BAND_WORDS takes the thread-per-read entries.  The warp entries keep the
-dump read-major in memory, (R, P, bw) and (R, P), and the serial entries
-column-major, (P, bw, R) and (P, R); polish_core returns (P, bw, R) /
-(P, R) views either way, equal element for element, and polish_walk
-copies a dump that does not lie the way its entry reads it.
+16 and 32, the widths of the default polish band ramp; every other width
+(bw >= 1: a --polish-band start of 3 ramps 3 -> 6 -> 12 -> 24 -> 48)
+takes the thread-per-read entries, which take the band width as a
+run-time argument.  The warp entries keep the dump read-major in memory,
+(R, P, bw) and (R, P), and the run-time entries column-major, (P, bw, R)
+and (P, R); polish_core returns (P, bw, R) / (P, R) views either way,
+equal element for element, and polish_walk copies a dump that does not
+lie the way its entry reads it.
 """
 from __future__ import annotations
 
@@ -27,27 +29,13 @@ from graphchainer_torch.ops import _cuda
 from graphchainer_torch.ops import linear_align as _la
 from graphchainer_torch.ops.myers import to_i32_bits
 
-BAND_WORDS = (1, 2, 4, 8, 16, 32, 64)   # band widths the kernels are built for
-WARP_BAND_WORDS = (8, 16, 32)           # ... with a warp per read
-ENTRIES = ("warp", "serial")
+WARP_BAND_WORDS = (8, 16, 32)           # band widths with a warp per read
 
 
 def entry_for(bw: int) -> str:
-    """The kernel entry a band width takes."""
-    if bw not in BAND_WORDS:
-        raise ValueError(f"polish kernels: bw={bw} not in {BAND_WORDS}")
-    return "warp" if bw in WARP_BAND_WORDS else "serial"
-
-
-def _entry(bw: int, entry) -> str:
-    """entry_for(bw), or the entry a caller that times one design against
-    the other asks for."""
-    if entry is None:
-        return entry_for(bw)
-    if entry not in ENTRIES or (entry == "warp"
-                                and bw not in WARP_BAND_WORDS):
-        raise ValueError(f"polish kernels: no {entry!r} entry for bw={bw}")
-    return entry
+    """The kernel entry a band width takes: "warp" or "any" (whose
+    launch refuses a width below 1)."""
+    return "warp" if bw in WARP_BAND_WORDS else "any"
 
 
 def polish_core(planes_t, path_t, read_len, path_len, bw: int):
@@ -60,10 +48,9 @@ def polish_core(planes_t, path_t, read_len, path_len, bw: int):
     return polish_core_cuda(*(a.contiguous() for a in args), bw)
 
 
-def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int,
-                     entry=None):
+def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
     """Launch the kernel on int32 CUDA tensors (words as bit patterns)."""
-    entry = _entry(bw, entry)
+    entry = entry_for(bw)
     _, RW, R = planes_t.shape
     P = path_t.shape[0]
     chk = _cuda.require_cuda
@@ -81,13 +68,13 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int,
                         device=dev)
     if R and P:
         L = _cuda.lib()
-        launch = L.polish_core_launch if warp else L.polish_core_serial_launch
+        launch = L.polish_core_launch if warp else L.polish_core_any_launch
         rc = launch(
             planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
             path_len.data_ptr(), R, RW, P, bw, dvp.data_ptr(),
             dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
             _cuda.stream_ptr(planes_t))
-        name = "polish_core" if warp else "polish_core_serial"
+        name = "polish_core" if warp else "polish_core_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)
     if warp:
@@ -113,7 +100,7 @@ def polish_walk(dvp, dvn, dsb, dbase, planes_t, path_t, read_len, path_len,
 
 def _stored(t, warp: bool):
     """A (P, bw, R) or (P, R) dump tensor as its entry reads it from
-    memory: read-major for the warp entry, as it is for the serial one.
+    memory: read-major for the warp entry, as it is for the run-time one.
     No copy where polish_core's matching entry wrote it."""
     if warp:
         t = t.permute(2, 0, 1) if t.dim() == 3 else t.permute(1, 0)
@@ -121,12 +108,11 @@ def _stored(t, warp: bool):
 
 
 def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
-                     path_len, bw: int, max_steps: int, ops_cap: int = 0,
-                     entry=None):
+                     path_len, bw: int, max_steps: int, ops_cap: int = 0):
     """Launch the walk kernel on int32 CUDA tensors (words as bit
     patterns); the dump tensors are (P, bw, R) / (P, R), in either
     memory order."""
-    entry = _entry(bw, entry)
+    entry = entry_for(bw)
     if not ops_cap or ops_cap > max_steps:
         ops_cap = max_steps
     if ops_cap % 16:
@@ -155,13 +141,13 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
                       device=dvp.device)
     if R:
         L = _cuda.lib()
-        launch = L.polish_walk_launch if warp else L.polish_walk_serial_launch
+        launch = L.polish_walk_launch if warp else L.polish_walk_any_launch
         rc = launch(
             dvp.data_ptr(), dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
             planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
             path_len.data_ptr(), R, RW, P, bw, max_steps, ops_cap,
             out.data_ptr(), _cuda.stream_ptr(dvp))
-        name = "polish_walk" if warp else "polish_walk_serial"
+        name = "polish_walk" if warp else "polish_walk_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)
     return out

@@ -1,12 +1,15 @@
 """align_reads: graph + indices + batched alignment + writers.
 
-Port of graphchainer_tpu/pipeline.py for CLC mode (ChainerModel), GA
-mode (--mode ga, GraphAlignerModel, with --seedless-DP) and optimal mode
-(--mode optimal, OptimalAlignerModel), with GFA or .vg input: a reader
-thread streams reads into batches, a thread pool runs the model's
-align_batch on up to `inflight` batches at once (host stages of one batch
-overlap device work of another), and the main thread writes GAM / GAF /
-JSON alignments and corrected reads and sums the statistics in numpy.
+Port of graphchainer_tpu/pipeline.py for CLC mode (ChainerModel, with
+minimizer, MEM, MUM or file seeds), GA mode (--mode ga,
+GraphAlignerModel, with --seedless-DP) and optimal mode (--mode optimal,
+OptimalAlignerModel), with GFA or .vg input: a reader thread streams
+reads into batches, a thread pool runs the model's align_batch on up to
+`inflight` batches at once (host stages of one batch overlap device work
+of another), and the main thread writes GAM / GAF / JSON alignments and
+corrected reads and sums the statistics in numpy.  With num_processes P >
+1 (parallel/multihost.py) each process takes every P-th read, writes
+".partI" files and the statistics are summed over all processes.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from graphchainer_torch.graph.mpc import MPCIndex, build_mpc
 from graphchainer_torch.index.minimizer import MinimizerIndex, build_index
 from graphchainer_torch.io import fastq, gaf, gam
 from graphchainer_torch.io.gfa import load_gfa
+from graphchainer_torch.parallel import multihost
 from graphchainer_torch.utils import timers
 from graphchainer_torch.models.aligner import (AlignerConfig,
                                                GraphAlignerModel)
@@ -55,6 +59,11 @@ class PipelineParams:
     discard_fraction: float = 0.0002
     chainer: ChainerConfig = field(default_factory=ChainerConfig)
     mode: str = "clc"          # clc (chaining) / ga (extension) / optimal
+    seed_file: Optional[str] = None   # external .gam seeds (CLC)
+    mem_count: int = 0                # >0: MEM seeding with this max count
+    mum_count: int = 0                # >0: MUM seeding (unique matches)
+    mxm_length: int = 20              # minimum MEM / MUM length
+    mxm_cache_prefix: Optional[str] = None   # PREFIX.sa.npz suffix array
     cigar_match_mismatch: bool = False
     device: str = "cuda"
     verbose: bool = False
@@ -72,6 +81,12 @@ class PipelineParams:
     global_alignment: bool = False            # --global-alignment (GA)
     seedless_dp: bool = False                 # --seedless-DP (GA mode)
     dp_restart_stride: int = 0                # --DP-restart-stride
+    # multi-process execution (parallel/multihost.py): all processes run
+    # the same command; reads stripe by index, outputs get .partI
+    # suffixes, the statistics are summed over the processes
+    num_processes: int = 1
+    process_id: int = 0
+    coordinator: str = "127.0.0.1:43231"
 
 
 @dataclass
@@ -85,6 +100,10 @@ class AlignmentStats:
     bp_in_alignments: int = 0
     assertion_broke: bool = False
     seconds: float = 0.0
+
+
+def g_name_ids(g: AlignmentGraph):
+    return {name: i for i, name in enumerate(g.names)}
 
 
 def load_graph(path: str, allow_cycles: bool = False) -> AlignmentGraph:
@@ -130,7 +149,33 @@ def corrected_read(aln: ReadAlignment, gx,
             + aln.seq[aln.seq_end:].lower())
 
 
+def get_or_build_mem(g: AlignmentGraph, cache_prefix: Optional[str]):
+    """The MEM / MUM suffix-array index, from PREFIX.sa.npz where it
+    exists, else built (and saved there when a prefix is given)."""
+    from graphchainer_torch.index.mem import MemIndex, build_mem_index
+    cache = cache_prefix + ".sa.npz" if cache_prefix else None
+    if cache and os.path.exists(cache):
+        return MemIndex.load(cache)
+    mem_index = build_mem_index(g)
+    if cache:
+        mem_index.save(cache)
+    return mem_index
+
+
 def align_reads(params: PipelineParams) -> AlignmentStats:
+    """Align params.read_files to params.graph_file and write the outputs.
+    With several processes, this one joins the others (before any device
+    work) and leaves the process group at the end."""
+    joined = multihost.initialize(params.coordinator, params.num_processes,
+                                  params.process_id)
+    try:
+        return _align_reads(params)
+    finally:
+        if joined:
+            multihost.finalize()
+
+
+def _align_reads(params: PipelineParams) -> AlignmentStats:
     t0 = time.time()
     try:
         g = load_graph(params.graph_file,
@@ -184,7 +229,20 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
             device=params.device)
     else:
         mpc = get_or_build_mpc(g, params.mpc_index_file)
+        file_seeds = seed_fn = None
+        if params.seed_file:
+            from graphchainer_torch.io.gam_reader import load_gam_seeds
+            file_seeds = load_gam_seeds(params.seed_file, g_name_ids(g))
+        elif params.mem_count > 0 or params.mum_count > 0:
+            from graphchainer_torch.index.mem import MemSeeder
+            seeder = MemSeeder(
+                g, get_or_build_mem(g, params.mxm_cache_prefix),
+                min_len=params.mxm_length,
+                max_count=params.mum_count or params.mem_count,
+                unique_only=params.mum_count > 0)
+            seed_fn = lambda name, seq: seeder.get_seeds(seq)  # noqa: E731
         model = ChainerModel(g, mpc, index, params.chainer,
+                             file_seeds=file_seeds, seed_fn=seed_fn,
                              device=params.device)
     stats = AlignmentStats()
 
@@ -197,25 +255,33 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
                                  legacy_score=params.evalue_legacy_score)
         db_size = int(np.sum(g.node_len)) // 2
     batch_q: "queue.Queue" = queue.Queue(maxsize=4)
+    npx, pid = params.num_processes, params.process_id
 
     def reader():
         batch = []
+        gi = 0
         for path in params.read_files:
             for rd in fastq.stream_reads(path):
-                batch.append((rd.name, rd.seq))
-                if len(batch) >= params.batch_size:
-                    batch_q.put(batch)
-                    batch = []
+                # read i belongs to process i % P
+                if gi % npx == pid:
+                    batch.append((rd.name, rd.seq))
+                    if len(batch) >= params.batch_size:
+                        batch_q.put(batch)
+                        batch = []
+                gi += 1
         if batch:
             batch_q.put(batch)
         batch_q.put(None)
 
-    gam_w = gam.GamWriter(params.out_gam) if params.out_gam else None
-    gaf_f = open(params.out_gaf, "w") if params.out_gaf else None
-    json_f = open(params.out_json, "w") if params.out_json else None
-    corr_f = (open(params.out_corrected, "w")
+    def out(path):
+        return multihost.part_suffix(path, pid, npx)
+
+    gam_w = gam.GamWriter(out(params.out_gam)) if params.out_gam else None
+    gaf_f = open(out(params.out_gaf), "w") if params.out_gaf else None
+    json_f = open(out(params.out_json), "w") if params.out_json else None
+    corr_f = (open(out(params.out_corrected), "w")
               if params.out_corrected else None)
-    clip_f = (open(params.out_corrected_clipped, "w")
+    clip_f = (open(out(params.out_corrected_clipped), "w")
               if params.out_corrected_clipped else None)
     rt = threading.Thread(target=reader, daemon=True)
     rt.start()
@@ -292,10 +358,12 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
         for f in (gaf_f, json_f, corr_f, clip_f):
             if f:
                 f.close()
+    stats.seconds = time.time() - t0
+    if npx > 1:
+        totals = multihost.merge_stats_global(totals)
     (stats.reads, stats.bp_in_reads, stats.seeds_found,
      stats.reads_with_a_seed, stats.reads_with_an_alignment,
      stats.alignments, stats.bp_in_alignments) = (int(x) for x in totals)
-    stats.seconds = time.time() - t0
     if params.verbose:
         print(f"Input reads: {stats.reads} ({stats.bp_in_reads}bp)")
         print(f"Seeds found: {stats.seeds_found}")

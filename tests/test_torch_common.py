@@ -7,6 +7,7 @@ float32 band ramp that is IEEE on both sides.  The input factories here are
 cached per process, so the test files of one worker share them.
 """
 import functools
+import json
 import os
 import subprocess
 import sys
@@ -26,6 +27,18 @@ from graphchainer_torch.align.anchors import level_bucket
 from test_mpc import random_dag_bigraph
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "torch_fixtures")
+
+# the text of tests/conftest.py's toy_gfa (the reference's test/graph.gfa),
+# for code that runs outside pytest's fixtures (make_fixtures.py)
+TOY_GFA_TEXT = ("S\t1\tACGTCATGCAGTCGTAACGTAGTCGTCACAGTCAGTCGTAGCTA\n"
+                "S\t2\tA\n"
+                "S\t3\tT\n"
+                "S\t4\tGTAGCGTCAGTCAGTCAGTCGTAGCGTAACGTCGTAGTCAGT\n"
+                "L\t1\t+\t2\t+\t0M\n"
+                "L\t1\t+\t3\t+\t0M\n"
+                "L\t2\t+\t4\t+\t0M\n"
+                "L\t3\t+\t4\t+\t0M\n")
 
 # The port's CPU tests run many small torch ops; with one pytest-xdist
 # worker per core, torch's per-process intra-op thread pool would
@@ -36,6 +49,42 @@ torch.set_num_threads(1)
 def t64(a) -> torch.Tensor:
     """numpy (or jax) array -> int64 CPU tensor."""
     return torch.as_tensor(np.asarray(a).astype(np.int64))
+
+
+def load_fixture(name):
+    """A recorded output of the JAX package: tests/torch_fixtures/
+    NAME.json, written by tests/torch_fixtures/make_fixtures.py (and held
+    to a live run by tests/test_torch_fixtures.py, marked slow)."""
+    with open(os.path.join(FIXTURES, name + ".json")) as fh:
+        return json.load(fh)
+
+
+def aln_record(a) -> dict:
+    """The compared fields of an alignment, as JSON values."""
+    return dict(
+        name=a.name, score=int(a.score),
+        positions=np.asarray(a.positions, dtype=np.int64).reshape(
+            -1, 2).tolist(),
+        ops=None if a.ops is None else np.asarray(a.ops).astype(
+            np.int64).tolist(),
+        seq_start=int(a.seq_start), seq_end=int(a.seq_end),
+        n_seeds=int(a.n_seeds), n_anchors=int(a.n_anchors),
+        n_chained=int(a.n_chained),
+        secondary=[aln_record(s) for s in a.secondary])
+
+
+def array_record(a) -> dict:
+    """An integer array as JSON values: its dtype, shape and elements."""
+    a = np.asarray(a)
+    return dict(dtype=str(a.dtype), shape=list(a.shape),
+                data=a.reshape(-1).astype(np.int64).tolist())
+
+
+def output_record(data: dict) -> dict:
+    """Output files' bytes as JSON values: GAM (binary, decompressed) as
+    hex, every text output as text."""
+    return {k: (v.hex() if k == "gam" else v.decode())
+            for k, v in data.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,8 +289,9 @@ _PORT_MODULES = [
     "graphchainer_torch.utils.timers",
     "graphchainer_torch.graph.alignment_graph",
     "graphchainer_torch.graph.mpc", "graphchainer_torch.graph.simulate",
-    "graphchainer_torch.index.minimizer", "graphchainer_torch.workload",
-    "chip_smoke",
+    "graphchainer_torch.index.minimizer", "graphchainer_torch.index.mem",
+    "graphchainer_torch.parallel", "graphchainer_torch.parallel.multihost",
+    "graphchainer_torch.workload", "chip_smoke",
 ]
 
 
@@ -282,6 +332,11 @@ def test_port_sources_never_import_jax():
                 if line.strip().startswith(banned):
                     offenders.append(f"{p}:{n}")
     assert len(files) > 30 and not offenders, offenders
+
+
+def test_toy_gfa_text_is_conftests(toy_gfa):
+    with open(toy_gfa) as fh:
+        assert fh.read() == TOY_GFA_TEXT
 
 
 def test_slice_case_has_escalation_read():

@@ -7,7 +7,10 @@ and the same numpy-seeded reads go through both packages, and every
 output must be exactly equal.  Also convert.py, which carries the
 reference's state across to the port's classes.  Also the copies of
 optimal mode and its I/O: the exact DAG oracle (align/oracle.py),
-anchors.backwalk, io/vg_wire, io/gam, io/vg_graph and io/gam_reader."""
+anchors.backwalk, io/vg_wire, io/gam, io/vg_graph and io/gam_reader.
+Also the MEM / MUM seeder (index/mem.py and its native bindings),
+GraphTensors.find_splits and the multi-process helpers
+(parallel/multihost.py)."""
 import dataclasses
 import gzip
 
@@ -25,6 +28,7 @@ from graphchainer_tpu.align import stitch as JST
 from graphchainer_tpu.graph import alignment_graph as JAG
 from graphchainer_tpu.graph import mpc as JMPC
 from graphchainer_tpu.graph import simulate as JSIM
+from graphchainer_tpu.index import mem as JMEM
 from graphchainer_tpu.index import minimizer as JMIN
 from graphchainer_tpu.io import fastq as JFQ
 from graphchainer_tpu.io import gam as JGAM
@@ -33,6 +37,7 @@ from graphchainer_tpu.io import gfa as JGFA
 from graphchainer_tpu.io import vg_graph as JVG
 from graphchainer_tpu.io import vg_wire as JVW
 from graphchainer_tpu.models import chainer as JC
+from graphchainer_tpu.parallel import multihost as JMH
 from graphchainer_tpu.utils import bits as JB
 from graphchainer_tpu.utils import seq as JS
 from graphchainer_torch import constants as TK
@@ -48,6 +53,7 @@ from graphchainer_torch.align import stitch as TST
 from graphchainer_torch.graph import alignment_graph as TAG
 from graphchainer_torch.graph import mpc as TMPC
 from graphchainer_torch.graph import simulate as TSIM
+from graphchainer_torch.index import mem as TMEM
 from graphchainer_torch.index import minimizer as TMIN
 from graphchainer_torch.io import fastq as TFQ
 from graphchainer_torch.io import gam as TGAM
@@ -56,6 +62,7 @@ from graphchainer_torch.io import gfa as TGFA
 from graphchainer_torch.io import vg_graph as TVG
 from graphchainer_torch.io import vg_wire as TVW
 from graphchainer_torch.models import chainer as TC
+from graphchainer_torch.parallel import multihost as TMH
 from graphchainer_torch.utils import bits as TB
 from graphchainer_torch.utils import seq as TS
 
@@ -372,7 +379,8 @@ def test_native_stage_calls(world, native_calls, name):
 @pytest.mark.parametrize("name", ["topo_order", "scc_order", "approx_pos",
                                   "connected_components", "mpc_build",
                                   "band_build", "band_build_multi",
-                                  "find_chains", "minimizer_build"])
+                                  "find_chains", "minimizer_build",
+                                  "suffix_array", "matching_stats"])
 def test_native_graph_calls(world, name):
     g = world["t"]["g"]
     n = g.n_nodes
@@ -403,12 +411,60 @@ def test_native_graph_calls(world, name):
     elif name == "find_chains":
         args = (n, g.out_ptr, g.out_idx, g.in_ptr, g.in_idx, g.node_len,
                 g.di_ptr, g.di_splits)
+    elif name in ("suffix_array", "matching_stats"):
+        text = np.frombuffer("\0".join(g.di_seqs).encode(), dtype=np.uint8)
+        args = (text,)
+        if name == "matching_stats":
+            read = np.frombuffer(world["reads"][0][1].encode(),
+                                 dtype=np.uint8)
+            args = (text, TN.suffix_array(text), read)
     else:
         seq = np.frombuffer("".join(g.di_seqs).encode(), dtype=np.uint8)
         off = np.zeros(g.n_digraph + 1, dtype=np.int64)
         np.cumsum([len(s) for s in g.di_seqs], out=off[1:])
         args = (seq, off, K, WIN, 2)
     same(getattr(JN, name)(*args), getattr(TN, name)(*args), name)
+
+
+@pytest.mark.parametrize("what", ["index", "mem", "mum", "seeder"])
+def test_mem(world, what):
+    """index/mem.py on the world graph and its reads: the index's text,
+    suffix array and node starts, MEM and MUM seeds of every read, and the
+    MemSeeder's."""
+    jg, tg = world["j"]["g"], world["t"]["g"]
+    jidx, tidx = JMEM.build_mem_index(jg), TMEM.build_mem_index(tg)
+    if what == "index":
+        same(vars(jidx), vars(tidx))
+        return
+    for _, read in world["reads"]:
+        if what == "seeder":
+            want = JMEM.MemSeeder(jg, jidx, 15, 4).get_seeds(read)
+            got = TMEM.MemSeeder(tg, tidx, 15, 4).get_seeds(read)
+        else:
+            want = JMEM.get_mem_seeds(jidx, jg, read, 20, 10, what == "mum")
+            got = TMEM.get_mem_seeds(tidx, tg, read, 20, 10, what == "mum")
+        assert got
+        same([dataclasses.asdict(x) for x in want],
+             [dataclasses.asdict(x) for x in got], what)
+
+
+def test_find_splits(world):
+    """GraphTensors.find_splits over every base of every digraph node."""
+    jg, tg = world["j"]["g"], world["t"]["g"]
+    di = np.repeat(np.arange(jg.n_digraph), [len(x) for x in jg.di_seqs])
+    off = np.concatenate([np.arange(len(x)) for x in jg.di_seqs])
+    same(JA.GraphTensors.build(jg).find_splits(di, off),
+         TA.GraphTensors.build(tg).find_splits(di, off))
+
+
+@pytest.mark.parametrize("P", [1, 2, 3])
+def test_multihost_helpers(P):
+    """The read stripe and the output suffix of every process."""
+    items = list(range(11))
+    for i in range(P):
+        assert JMH.stripe(items, i, P) == TMH.stripe(items, i, P)
+        for path in ("out.gaf", None):
+            assert JMH.part_suffix(path, i, P) == TMH.part_suffix(path, i, P)
 
 
 def test_native_topo_order_refuses_a_cycle():

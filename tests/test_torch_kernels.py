@@ -42,39 +42,32 @@ def test_cpu_tensors_run_plain_versions():
     assert set(_cuda.launches().values()) == {0}
     assert set(_cuda.launches()) == {
         "frag_core", "frag_core_carried", "frag_wide", "polish_core",
-        "polish_walk", "polish_core_serial", "polish_walk_serial"}
+        "polish_walk", "polish_core_any", "polish_walk_any"}
 
 
-@pytest.mark.parametrize("bw", polish_kernel.BAND_WORDS)
+@pytest.mark.parametrize("bw", [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64,
+                                100])
 def test_polish_entry_is_chosen_by_band_width(bw):
-    """The warp-per-read entries take the band ramp's widths, the
-    thread-per-read entries the rest; an entry can be forced only where
-    it is built."""
-    want = "warp" if bw in (8, 16, 32) else "serial"
+    """The warp-per-read entries take the default band ramp's widths, the
+    run-time-bw entries every other width, for any --polish-band start."""
+    want = "warp" if bw in (8, 16, 32) else "any"
     assert polish_kernel.entry_for(bw) == want
-    assert polish_kernel._entry(bw, None) == want
-    assert polish_kernel._entry(bw, "serial") == "serial"
-    if want == "serial":
-        with pytest.raises(ValueError, match="no 'warp' entry"):
-            polish_kernel._entry(bw, "warp")
-    with pytest.raises(ValueError, match="no 'fast' entry"):
-        polish_kernel._entry(bw, "fast")
 
 
 def test_polish_dump_layouts():
     """A dump reaches its entry in the memory order that entry reads: a
     (P, bw, R) view of read-major storage goes to the warp entry without
-    a copy, and is copied column-major for the serial entry."""
+    a copy, and is copied column-major for the run-time-bw entry."""
     R, P, bw = 3, 5, 8
     store = torch.arange(R * P * bw, dtype=torch.int32).reshape(R, P, bw)
     view = store.permute(1, 2, 0)
     assert tuple(view.shape) == (P, bw, R)
     warp = polish_kernel._stored(view, True)
     assert warp.data_ptr() == store.data_ptr() and warp.is_contiguous()
-    serial = polish_kernel._stored(view, False)
-    assert serial.is_contiguous() and torch.equal(serial, view)
-    assert serial.data_ptr() != store.data_ptr()
-    back = polish_kernel._stored(serial, True)
+    cols = polish_kernel._stored(view, False)
+    assert cols.is_contiguous() and torch.equal(cols, view)
+    assert cols.data_ptr() != store.data_ptr()
+    back = polish_kernel._stored(cols, True)
     assert tuple(back.shape) == (R, P, bw) and torch.equal(back, store)
     base = torch.arange(R * P, dtype=torch.int32).reshape(R, P)
     assert polish_kernel._stored(base.permute(1, 0), True).data_ptr() \
@@ -102,7 +95,8 @@ def test_kernel_calls_refuse_cpu_tensors():
     planes_t, path_t, rl, pl = (to_i32_bits(t64(a)) for a in mixed_batch())
     with pytest.raises(ValueError, match="CUDA tensor"):
         polish_kernel.polish_core_cuda(planes_t, path_t, rl, pl, 4)
-    with pytest.raises(ValueError, match="bw=3"):
+    # any band width gets past the wrapper to the device check
+    with pytest.raises(ValueError, match="CUDA tensor"):
         polish_kernel.polish_core_cuda(planes_t, path_t, rl, pl, 3)
     dump = [to_i32_bits(x) for x in linear_align._polish_core_t(
         *(t64(a) for a in mixed_batch()), 4)]
@@ -292,24 +286,30 @@ def test_frag_kernel_matches_plain(cuda_device, case):
                        ref[3].permute(2, 1, 0).cpu())
 
 
+_GPU_BANDS = [3, 4, 8, 12, 16, 32, 48]   # both entries; 3, 12, 48 ramp
+                                         # from a start of 3 or 12
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bw", [4, 8, 16, 32])
+@pytest.mark.parametrize("bw", _GPU_BANDS)
 def test_polish_kernel_matches_plain(cuda_device, bw):
     planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
                                 for a in mixed_batch())
     ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
     i32 = (to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int())
-    for entry in ((None, "serial") if bw >= 8 else (None,)):
-        got = polish_kernel.polish_core_cuda(*i32, bw, entry=entry)
-        torch.cuda.synchronize()
-        assert torch.equal(u32(got[0]).cpu(), ref[0].cpu()), entry
-        assert torch.equal(u32(got[1]).cpu(), ref[1].cpu()), entry
-        assert torch.equal(got[2].long().cpu(), ref[2].cpu()), entry
-        assert torch.equal(got[3].long().cpu(), ref[3].cpu()), entry
+    _cuda.reset_launches()
+    got = polish_kernel.polish_core_cuda(*i32, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(u32(got[0]).cpu(), ref[0].cpu())
+    assert torch.equal(u32(got[1]).cpu(), ref[1].cpu())
+    assert torch.equal(got[2].long().cpu(), ref[2].cpu())
+    assert torch.equal(got[3].long().cpu(), ref[3].cpu())
+    name = "polish_core" if bw in (8, 16, 32) else "polish_core_any"
+    assert _cuda.launches()[name] == 1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bw", [4, 8, 16, 32])
+@pytest.mark.parametrize("bw", _GPU_BANDS)
 def test_polish_walk_matches_plain(cuda_device, bw):
     planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
                                 for a in mixed_batch())
@@ -323,8 +323,7 @@ def test_polish_walk_matches_plain(cuda_device, bw):
                                         max_steps, cap)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref.cpu())
-        got = polish_kernel.polish_walk_cuda(*i32, bw, max_steps, cap,
-                                             entry="serial")
+        got = polish_kernel.polish_walk_cuda(*i32, bw, max_steps, cap)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref.cpu())
 

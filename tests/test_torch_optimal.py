@@ -3,27 +3,26 @@
 The same numpy inputs go through graphchainer_tpu and graphchainer_torch
 (plain torch versions on the CPU) and every output must be exactly equal:
 the F-major fragment DP with full_start at both pointer widths, the
-optimal model's score, positions and ops, and the CLI's GAF / GAM / JSON
-/ corrected-read bytes.  The JAX side runs on two compiled
-shapes: the graph and read of tests/test_optimal.py's first random DAG
-(int8 pointers) and one DAG of 65..128 split nodes a component (int16);
-everything else is held to the port's copy of the exact DAG oracle,
-which compiles nothing.  Seedless DP is tests/test_torch_seedless.py."""
+optimal model's score, positions and ops (on tests/test_optimal.py's
+first random DAG, a DAG of 65..128 split nodes a component and the toy
+graph), and the CLI's GAF / GAM / JSON / corrected-read bytes.  The JAX
+side of each comparison is the JAX package's output recorded in
+tests/torch_fixtures/ (make_fixtures.py there): each of its shapes costs
+45-80 s of XLA compile on the CPU, and tests/test_torch_fixtures.py
+(marked slow) holds the records to a live run.  Everything else is held
+to the port's copy of the exact DAG oracle.  Seedless DP is
+tests/test_torch_seedless.py."""
 import gzip
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from graphchainer_tpu import cli as JCLI
 from graphchainer_tpu.graph.alignment_graph import build_alignment_graph
 from graphchainer_tpu.index.minimizer import build_index
 from graphchainer_tpu.io.gfa import load_gfa, save_gfa
-from graphchainer_tpu.models import optimal as JOPT
-from graphchainer_tpu.ops import frag_align as JF
-from graphchainer_tpu.utils.seq import match_masks
 from graphchainer_torch import cli as TCLI
-from graphchainer_torch.align import anchors as TA
 from graphchainer_torch.align import oracle as TOR
 from graphchainer_torch.models import optimal as TOPT
 from graphchainer_torch.ops import frag_align as TF
@@ -32,7 +31,9 @@ from conftest import TOY_READ
 from test_mpc import random_dag_bigraph
 from test_e2e import simulate
 from test_optimal import long_chain_bigraph
-from test_torch_common import port_graph, port_index
+from test_torch_common import (TOY_GFA_TEXT, aln_record, array_record,
+                               load_fixture, output_record, port_graph,
+                               port_index)
 
 
 def _dag_world(seed):
@@ -46,8 +47,18 @@ def _dag_world(seed):
     return g, idx, read
 
 
-def _toy_world(path):
-    g = build_alignment_graph(load_gfa(path))
+def _toy_world(path=None):
+    """The toy graph (tests/conftest.py's toy_gfa), its index and read;
+    from TOY_GFA_TEXT where no path is given."""
+    if path is None:
+        import tempfile
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "toy.gfa")
+            with open(path, "w") as fh:
+                fh.write(TOY_GFA_TEXT)
+            g = build_alignment_graph(load_gfa(path))
+    else:
+        g = build_alignment_graph(load_gfa(path))
     return g, build_index(g, k=11, w=5), TOY_READ
 
 
@@ -64,80 +75,49 @@ def _wide_world():
 
 
 def _world(name):
-    return _dag_world(0) if name == "dag" else _wide_world()
+    return {"dag": lambda: _dag_world(0), "wide": _wide_world,
+            "toy": _toy_world}[name]()
 
 
-def _optimal_inputs(name):
-    """The align_fragments call of optimal mode on component 0 of a world,
-    exactly as the JAX model makes it (the same compiled shape)."""
-    g, idx, read = _world(name)
-    m = JOPT.OptimalAlignerModel(g, idx)
-    bn, bi, bl, _ = m._component_band(0)
-    rows = len(read)
-    S = JOPT._pow2(-(-rows // 32), 2)
-    mm = np.zeros(S * 32, dtype=np.uint8)
-    mm[:rows] = match_masks(read)
-    # the model's own device tables: numpy tables would compile anew
-    eq, ln = m.gx.device_tables()
-    return dict(node_eq=eq, node_len=ln, band_nodes=bn, band_in=bi,
-                seed_shift=np.zeros(1, dtype=np.int32),
-                req=TA.pack_row_planes(mm[None, :]).reshape(1, S, 4),
-                frag_len=np.array([rows], dtype=np.int32), n_slices=S,
-                max_in=bi.shape[2], full_start=True, band_level=bl,
-                n_levels=TA.level_bucket(bl, bn.shape[1]))
+FULL_START_CASES = {"B64_int8": "dag", "B128_int16": "wide"}
 
 
-_FIELDS = ("best_score", "best_slot", "best_col", "best_in", "end_score",
-           "end_col", "out_ssb", "out_hp", "out_hn")
+FULL_START_FIELDS = ("best_score", "best_slot", "best_col", "best_in",
+                     "end_score", "end_col", "out_ssb", "out_hp", "out_hn")
 
 
-@pytest.mark.parametrize("world,B", [("dag", 64), ("wide", 128)],
-                         ids=["B64_int8", "B128_int16"])
-def test_align_fragments_full_start_matches_jax(world, B):
-    kw = _optimal_inputs(world)
-    assert kw["band_nodes"].shape[1] == B
-    # the model's call, arguments placed as it places them (a keyword
-    # where it passes a position would compile anew)
-    pos = [kw.pop(k) for k in ("node_eq", "node_len", "band_nodes",
-                               "band_in", "seed_shift", "req", "frag_len")]
-    want = JF.align_fragments(*pos, **kw)
-
-    def t(v):
-        return torch.as_tensor(np.asarray(v).astype(np.int64))
-    got = TF.align_fragments(*(t(v) for v in pos), **{
-        k: (v if isinstance(v, (int, bool)) else t(v))
-        for k, v in kw.items()})
-    assert got.best_in.dtype == (torch.int8 if B <= 127 else torch.int16)
-    for k in _FIELDS:
-        a = np.asarray(getattr(want, k))
+@pytest.mark.parametrize("case", list(FULL_START_CASES))
+def test_align_fragments_full_start_matches_jax(case):
+    """align_fragments with full_start on the port model's band of
+    component 0 (as the model calls it) against the JAX function on the
+    JAX model's (recorded), every field with its dtype."""
+    g, idx, read = _world(FULL_START_CASES[case])
+    args, kw = TOPT.OptimalAlignerModel(
+        port_graph(g), port_index(idx), device="cpu").component_inputs(
+            read, 0)
+    want = load_fixture("full_start")[case]
+    assert args[2].shape[1] == want["B"]
+    got = TF.align_fragments(*args, **kw)
+    assert got.best_in.dtype == (torch.int8 if want["B"] <= 127
+                                 else torch.int16)
+    for k in FULL_START_FIELDS:
         b = getattr(got, k).numpy()
         if k in ("out_hp", "out_hn"):
             b = b.view(np.uint32)
-        assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
-        np.testing.assert_array_equal(a, b, err_msg=k)
+        assert array_record(b) == want["fields"][k], k
 
 
-def _same_alignment(a, b):
-    assert a.name == b.name and a.score == b.score
-    np.testing.assert_array_equal(np.asarray(a.positions),
-                                  np.asarray(b.positions))
-    if a.ops is None:
-        assert b.ops is None
-    else:
-        np.testing.assert_array_equal(np.asarray(a.ops), np.asarray(b.ops))
-
-
-@pytest.mark.parametrize("world", ["dag", "wide"])
+@pytest.mark.parametrize("world", ["dag", "wide", "toy"])
 def test_optimal_model_matches_jax(world):
+    """The optimal model's alignment against the JAX model's (recorded),
+    on both DAGs and the toy graph."""
     g, idx, read = _world(world)
-    ja = JOPT.OptimalAlignerModel(
-        g, idx, JOPT.OptimalConfig(polish_band_words=4)).align_batch(
-            [("r", read)])
     ta = TOPT.OptimalAlignerModel(
         port_graph(g), port_index(idx),
         TOPT.OptimalConfig(polish_band_words=4), device="cpu").align_batch(
             [("r", read)])
-    _same_alignment(ja[0], ta[0])
+    assert not ta[0].failed
+    assert aln_record(ta[0]) == load_fixture("optimal_model")[world]
 
 
 def _exact_best_score(g, read):
@@ -202,46 +182,47 @@ def test_optimal_component_above_cap():
 
 # ---- the CLI ------------------------------------------------------------
 
-def _outputs(tmp, tag):
-    return {k: str(tmp / f"{tag}.{k}") for k in ("gaf", "gam", "json")}
-
-
-def _run_both(tmp_path, graph, reads, flags):
-    """The JAX CLI (in this process) and the port's CLI on the CPU with
-    every alignment and corrected-read output; returns the bytes of each
-    output of both (GAM decompressed: gzip stamps the time)."""
-    fa = tmp_path / "reads.fa"
+def run_cli(main, tmp_path, tag, graph, reads, flags):
+    """One CLI (main: the JAX package's or the port's) with every
+    alignment and corrected-read output; returns the bytes of each output
+    (GAM decompressed: gzip stamps the time)."""
+    fa = tmp_path / f"{tag}.reads.fa"
     fa.write_text("".join(f">{n}\n{s}\n" for n, s in reads))
-    got = {}
-    for tag, main, extra in (("jax", JCLI.main, []),
-                             ("torch", TCLI.main, ["--device", "cpu"])):
-        outs = _outputs(tmp_path, tag)
-        corr = str(tmp_path / f"{tag}.corr.fa")
-        clip = str(tmp_path / f"{tag}.clip.fa")
-        argv = (["-g", graph, "-f", str(fa), "--corrected-out", corr,
-                 "--corrected-clipped-out", clip]
-                + [x for p in outs.values() for x in ("-a", p)]
-                + flags + extra)
-        assert main(argv) == 0
-        data = {}
-        for k, p in list(outs.items()) + [("corr", corr), ("clip", clip)]:
-            opener = gzip.open if k == "gam" else open
-            with opener(p, "rb") as fh:
-                data[k] = fh.read()
-        got[tag] = data
-    return got
+    outs = {k: str(tmp_path / f"{tag}.{k}") for k in ("gaf", "gam", "json")}
+    corr = str(tmp_path / f"{tag}.corr.fa")
+    clip = str(tmp_path / f"{tag}.clip.fa")
+    argv = (["-g", graph, "-f", str(fa), "--corrected-out", corr,
+             "--corrected-clipped-out", clip]
+            + [x for p in outs.values() for x in ("-a", p)] + flags)
+    assert main(argv) == 0
+    data = {}
+    for k, p in list(outs.items()) + [("corr", corr), ("clip", clip)]:
+        opener = gzip.open if k == "gam" else open
+        with opener(p, "rb") as fh:
+            data[k] = fh.read()
+    return data
+
+
+def optimal_cli_case(tmp_path):
+    """--optimal-alignment on the graph and read of the model test:
+    (GFA path, reads, flags)."""
+    _, _, read = _dag_world(0)
+    gfa = str(tmp_path / "g.gfa")
+    save_gfa(random_dag_bigraph(np.random.default_rng(300), n_seg=8,
+                                p_edge=0.3, max_len=10), gfa)
+    return gfa, [("read", read)], [
+        "--optimal-alignment", "--polish-band", "4",
+        "--seeds-minimizer-length", "5", "--seeds-minimizer-windowsize", "3"]
 
 
 def test_cli_optimal_outputs_match_jax(tmp_path):
-    """--optimal-alignment on the graph and read of the model test."""
-    _, _, read = _dag_world(0)
-    rng = np.random.default_rng(300)
-    gfa = str(tmp_path / "g.gfa")
-    save_gfa(random_dag_bigraph(rng, n_seg=8, p_edge=0.3, max_len=10), gfa)
-    got = _run_both(tmp_path, gfa, [("read", read)],
-                    ["--optimal-alignment", "--polish-band", "4",
-                     "--seeds-minimizer-length", "5",
-                     "--seeds-minimizer-windowsize", "3"])
-    assert got["jax"]["gaf"].count(b"\n") == 1
-    for k in got["jax"]:
-        assert got["jax"][k] == got["torch"][k], k
+    """--optimal-alignment: the port's CLI bytes against the JAX CLI's
+    (recorded)."""
+    gfa, reads, flags = optimal_cli_case(tmp_path)
+    got = output_record(run_cli(TCLI.main, tmp_path, "torch", gfa, reads,
+                                flags + ["--device", "cpu"]))
+    want = load_fixture("optimal_cli")
+    assert want["gaf"].count("\n") == 1
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == want[k], k

@@ -16,7 +16,8 @@ from graphchainer_torch.ops import linear_align as TL
 
 from graphchainer_torch.workload import polish_hard_pairs
 
-from test_torch_common import mixed_batch, pack_polish_pairs, t64
+from test_torch_common import (load_fixture, mixed_batch,
+                               pack_polish_pairs, t64)
 
 
 @pytest.mark.parametrize("bw", [4, 8])
@@ -212,3 +213,39 @@ def test_packed_formats_match_jax():
     for r, p, b in ((3000, 4000, 8), (1024, 1024, 32), (500, 9000, 4)):
         assert TP._ops_cap(r, p, b) == JP._ops_cap(r, p, b)
         assert TP._round_up(r, 1024) == JP._round_up(r, 1024)
+
+
+ANY_BANDS = (3, 12, 48)      # a --polish-band start of 3 ramps through 12
+                             # and 48, one of 12 through 48
+
+
+def any_band_case():
+    """A 600 bp read with every 9th base substituted, against the 700 bp
+    path it was cut from (and 50 bases on each side), and its first 300
+    bases against the same path: reads whose polish needs a wide band or
+    the ramp."""
+    rng = np.random.default_rng(9)
+    path = "".join(rng.choice(list("ACGT"), 700))
+    read = list(path[50:650])
+    for i in range(0, len(read), 9):
+        read[i] = "ACGT"[("ACGT".index(read[i]) + 1 + int(rng.integers(3)))
+                         % 4]
+    read = "".join(read)
+    return [read, read[:300]], [path, path]
+
+
+def outcome_record(o) -> dict:
+    """A PolishOutcome as JSON values."""
+    return dict(score=int(o.score), touched=bool(o.touched),
+                ops=None if o.ops is None else o.ops.astype(int).tolist())
+
+
+@pytest.mark.parametrize("bw", ANY_BANDS)
+def test_polish_batch_any_band_matches_jax(bw):
+    """polish_batch from a start of any band width (the run-time-bw
+    entries' widths) equals the JAX package's scores and ops (recorded)."""
+    reads, paths = any_band_case()
+    got = TP.polish_batch(reads, paths, bw=bw, device="cpu")
+    want = load_fixture("polish_any_band")[str(bw)]
+    assert [outcome_record(o) for o in got] == want
+    assert all(w["ops"] is not None for w in want)

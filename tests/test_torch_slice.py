@@ -23,7 +23,8 @@ from graphchainer_torch.models import chainer as TC
 from graphchainer_torch.utils import timers
 
 from test_mpc import random_dag_bigraph
-from test_torch_common import REPO, slice_case, slice_case_port
+from test_torch_common import (REPO, load_fixture, output_record,
+                               slice_case, slice_case_port)
 
 
 def slice_reads():
@@ -128,10 +129,56 @@ def test_cli_gaf_matches_jax(tmp_path):
     (["--polish-band", "3"], "--polish-band"),
 ])
 def test_cli_rejects_unported(argv, msg):
-    base = ["-g", "g.gfa", "-f", "r.fa"]
-    if "-a" not in argv:
-        base += ["-a", "o.gaf"]
+    """No flag of the JAX CLI is left unported: each flag that the port
+    once rejected now reaches PipelineParams."""
+    base = ["-g", "g.gfa", "-f", "r.fa", "-a", "o.gaf"]
     args = cli.build_parser().parse_args(base + argv)
-    with pytest.raises(SystemExit) as e:
-        cli.params_from_args(args)
-    assert msg in str(e.value)
+    p = cli.params_from_args(args)
+    got = {"--seeds-mum-count": p.mum_count, "--seeds-mem-count": p.mem_count,
+           "--num-processes": p.num_processes, "--seeds-file": p.seed_file,
+           "--polish-band": p.chainer.polish_band_words}[msg]
+    assert str(got) == argv[1]
+
+
+def test_parser_takes_every_jax_option():
+    """Every option string of graphchainer_tpu's parser is an option of
+    the port's parser, with the same default."""
+    from graphchainer_tpu import cli as JCLI
+
+    def options(p):
+        return {o: a.default for a in p._actions for o in a.option_strings}
+    want, got = options(JCLI.build_parser()), options(cli.build_parser())
+    missing = sorted(set(want) - set(got))
+    assert not missing
+    assert {o: got[o] for o in want} == want
+    assert set(got) - set(want) == {"--device"}
+
+
+POLISH_BANDS = (3, 12)
+
+
+def polish_cli_case(tmp_path, bw):
+    """--polish-band bw on the CLI test's graph and three 10%-error reads:
+    (GFA path, reads, flags)."""
+    gfa = str(tmp_path / "g.gfa")
+    save_gfa(random_dag_bigraph(np.random.default_rng(2), n_seg=24,
+                                p_edge=0.15, max_len=300), gfa)
+    return gfa, slice_reads()[1:], [
+        "--polish-band", str(bw), "--seeds-minimizer-length", "11",
+        "--seeds-minimizer-windowsize", "6"]
+
+
+@pytest.mark.parametrize("bw", POLISH_BANDS)
+def test_cli_polish_band_matches_jax(bw, tmp_path):
+    """--polish-band widths outside the warp entries' 8, 16 and 32 run
+    through the port's CLI, and its output bytes equal the JAX CLI's
+    (recorded)."""
+    from test_torch_optimal import run_cli
+    gfa, reads, flags = polish_cli_case(tmp_path, bw)
+    got = output_record(run_cli(cli.main, tmp_path, "torch", gfa, reads,
+                                flags + ["--device", "cpu"]))
+    want = load_fixture("polish_cli")[str(bw)]
+    assert want["gaf"].count("\n") == len(reads)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == want[k], k
