@@ -47,17 +47,13 @@ def _dag_world(seed):
     return g, idx, read
 
 
-def _toy_world(path=None):
-    """The toy graph (tests/conftest.py's toy_gfa), its index and read;
-    from TOY_GFA_TEXT where no path is given."""
-    if path is None:
-        import tempfile
-        with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, "toy.gfa")
-            with open(path, "w") as fh:
-                fh.write(TOY_GFA_TEXT)
-            g = build_alignment_graph(load_gfa(path))
-    else:
+def _toy_world():
+    """The toy graph (tests/conftest.py's toy_gfa), its index and read."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "toy.gfa")
+        with open(path, "w") as fh:
+            fh.write(TOY_GFA_TEXT)
         g = build_alignment_graph(load_gfa(path))
     return g, build_index(g, k=11, w=5), TOY_READ
 
@@ -152,11 +148,10 @@ def _ops_cost(g, aln, read):
 
 
 @pytest.mark.parametrize("world", ["toy", 1, 2, 3, 4, 5])
-def test_optimal_matches_oracle(toy_gfa, world):
+def test_optimal_matches_oracle(world):
     """Optimal mode's kernel score equals the exact free-start DAG DP of
     the port's oracle copy, and its traceback spells out that score."""
-    g, idx, read = (_toy_world(toy_gfa) if world == "toy"
-                    else _dag_world(world))
+    g, idx, read = _toy_world() if world == "toy" else _dag_world(world)
     g, idx = port_graph(g), port_index(idx)
     aln = TOPT.OptimalAlignerModel(
         g, idx, TOPT.OptimalConfig(polish_band_words=4),
