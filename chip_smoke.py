@@ -17,12 +17,15 @@ Phases (any failure raises and exits non-zero before the result line):
      frame or spill fails); polish_core and polish_walk (score +
      backtrace over the fill's dump) on the main path's 128 reads against
      their stitched paths at every band width of the default ramp (8, 16,
-     32: the warp entries) and of the ramp from a start of 3 or 12 (3, 6,
-     12, 24, 48: the run-time-bw entries), each timed there with its
-     bound, on a batch whose 48 bp paths force band shifts of several
-     words per column, and on workload.polish_hard_pairs (empty reads and
-     paths, long indels, steep bands mixed with ordinary reads) at bw 8,
-     12 and 16, under an ops_cap that long walks overflow too (the plain
+     32: the template warp entries) and of the ramp from a start of 3 or
+     12 (3, 6, 12, 24, 48: the run-time-bw entries), at the edge widths 1,
+     2 and 5 and at 33 and 64 (two band words a lane), each timed there
+     with its bound, on a batch whose 48 bp paths force band shifts of
+     several words per column and on workload.polish_hard_pairs (empty
+     reads and paths, long indels, steep bands mixed with ordinary reads)
+     at bw 1, 8, 12, 33 and 64 (and 16 on the hard pairs), nvcc's report
+     of the run-time fill's warp entry (no stack frame or spill), under an
+     ops_cap that long walks overflow too (the plain
      polish versions run on the CPU, in processes of their own, and their
      dumps are compared by sha256 digest, their rows whole); and the
      carried entry of frag_core (GA mode's windows: a carried state in,
@@ -50,9 +53,11 @@ Phases (any failure raises and exits non-zero before the result line):
   6. frag_wide (the F-major full-start DP of optimal mode and seedless
      DP) against its plain version on the CPU, every output exact: a
      whole component of the bench graph (B=4096) with a 64-row read
-     prefix, the seedless tiles (B=1024, S=8, three restart offsets) and
+     prefix, the same band cut to half its levels with a 128-row prefix
+     (S=4), the seedless tiles (B=1024, S=8, three restart offsets) and
      the hard batch with and without full_start; timed there and at a
-     whole 3 kbp read (S=128); nvcc's report of its registers and
+     whole 3 kbp read (S=128, held through optimal mode's reads, each the
+     exact oracle's minimum); nvcc's report of its registers and
      spills; optimal mode (OptimalAlignerModel on cuda) on 4 bench reads,
      each score the exact DAG oracle's minimum; seedless DP
      (GraphAlignerModel(seedless_dp=True)) on 8 bench reads with every
@@ -417,8 +422,10 @@ def check_polish(pairs, bw, dev, label, plain, timed=False):
 
 
 WARP_BANDS = (8, 16, 32)            # the default ramp: the warp entries
-ANY_BANDS = (3, 6, 12, 24, 48)      # the ramp from a start of 3 (and 12):
-                                    # the run-time-bw entries
+# the run-time-bw entries: the ramp from a start of 3 (and 12), the edge
+# widths 1, 2 and 5, and 33 and 64 (two band words a lane)
+ANY_BANDS = (1, 2, 3, 5, 6, 12, 24, 33, 48, 64)
+EDGE_BANDS = (1, 12, 33, 64)        # the band-shift batch and the hard pairs
 
 
 # ---------------------------------------------------------------- bounds
@@ -829,11 +836,14 @@ def wide_bound(args, kw, out):
 def wide_cases(model, reads, dev):
     """The inputs of every frag_wide check: one component band of the
     bench graph at its full width with a 64-row read prefix (S = 2), the
-    seedless tiles of the bench graph for three restart offsets of a read
-    (S = 8), and the hard batch (pad slots, length-0 seed slots, slots
-    past 32 columns, in-edges from pad slots, from beyond B and from the
-    same or a higher level, levels past n_levels; int8 pointers at B = 64)
-    with and without full_start.  Returns [(label, args, kw)]."""
+    same band cut to its lower half of levels with a 128-row prefix
+    (S = 4, B = 4096), the seedless tiles of the bench graph for three
+    restart offsets of a read (S = 8), and the hard batch (pad slots,
+    length-0 seed slots, slots past 32 columns, in-edges from pad slots,
+    from beyond B and from the same or a higher level, levels past
+    n_levels; int8 pointers at B = 64) with and without full_start.
+    Returns [(label, args, kw)]."""
+    import torch
     from graphchainer_torch.align.seedless import FullstartScanner
     from graphchainer_torch.models.optimal import OptimalAlignerModel
     opt = OptimalAlignerModel(model.g, model.index, gx=model.gx, device=dev)
@@ -841,7 +851,16 @@ def wide_cases(model, reads, dev):
     read = reads[0][1]
     comp = opt.component_inputs(read[:64], 0)
     tiles = scan.scan_inputs(read, offsets=(0, 1000, 2000))[:2]
+    # four slices at B = 4096 on half the component (its lower levels; the
+    # rest pad), so that the plain version takes as long as at two slices
+    cut, cut_kw = opt.component_inputs(read[:128], 0)
+    bl = cut_kw["band_level"]
+    keep = int(bl.max()) // 2 + 1
+    cut_kw = dict(cut_kw, band_level=torch.where(bl < keep, bl, -1)
+                  .contiguous())
     return [("optimal component, a 64-row prefix", *comp),
+            ("optimal component cut to half its levels, a 128-row prefix",
+             cut, cut_kw),
             ("seedless tiles, 3 offsets", *tiles),
             ("hard batch", *wide_hard_inputs(dev, 3)),
             ("hard batch, no full_start",
@@ -1502,8 +1521,12 @@ def main() -> int:
                     + [("48 bp paths, multi-word shifts", pairs48, 8, 0,
                         False),
                        ("hard cases mixed in", hard, 8, small_cap, False),
-                       ("hard cases mixed in", hard, 16, 0, False),
-                       ("hard cases mixed in", hard, 12, small_cap, False)])
+                       ("hard cases mixed in", hard, 16, 0, False)]
+                    + [("48 bp paths, multi-word shifts", pairs48, bw, 0,
+                        False) for bw in EDGE_BANDS]
+                    + [("hard cases mixed in", hard, bw,
+                        small_cap if bw == 12 else 0, False)
+                       for bw in EDGE_BANDS])
     global _POOL
     pool = _POOL = ProcessPoolExecutor(
         max_workers=6, mp_context=multiprocessing.get_context("spawn"))
@@ -1532,6 +1555,16 @@ def main() -> int:
            for (label, pr, bw, _, timed), f in zip(polish_cases,
                                                     polish_plain)]
     pol_main = {c["bw"]: c for c in pol if "fill_ms" in c}
+    pptx = ptxas_report(_cuda.ptxas_log(), "polish_core_any_kernel")
+    log(f"ptxas, polish_core_any_kernel<words a lane> (registers, stack "
+        f"frame, spill stores, spill loads bytes): {pptx}")
+    if len(pptx) != 2:
+        raise AssertionError(f"no ptxas report of both "
+                             f"polish_core_any_kernel instantiations: {pptx}")
+    for name, (_, stack, st, ld) in pptx.items():
+        if stack or st or ld:
+            raise AssertionError(f"{name}: {stack} bytes stack frame, "
+                                 f"{st} / {ld} bytes spilled")
 
     # ---- 3. the main path
     batch = 128
@@ -1602,16 +1635,19 @@ def main() -> int:
     # -> 48): the run-time-bw entries
     model12 = ChainerModel(g, mpc, index, ChainerConfig(polish_band_words=12),
                            gx=model.gx, device="cuda")
+    timers.reset()
     _cuda.reset_launches()
     t1 = time.perf_counter()
     af12, ned12 = run_pass(model12, chunks, workers)
     torch.cuda.synchronize()
     wall12 = time.perf_counter() - t1
     launches12 = _cuda.launches()
+    stages12 = {k: round(v[0], 3) for k, v in timers.snapshot().items()}
     log(f"polish band 12: {n_reads} reads in {wall12:.3f} s = "
         f"{n_reads / wall12:.2f} reads/s; aligned_fraction {af12:.4f}, "
         f"mean_norm_edit_distance {ned12:.4f}; launches "
-        f"{json.dumps(launches12)}")
+        f"{json.dumps(launches12)}; stage seconds (thread-summed) "
+        f"{json.dumps(stages12)}")
     for name in ("frag_core",) + ANY_PATH_KERNELS:
         if launches12[name] <= 0:
             raise AssertionError(f"polish band 12: kernel {name} never "
@@ -1775,6 +1811,7 @@ def main() -> int:
                                        for k, v in seeded_launches.items()}),
         polish_entry("polish_core_any", "core", ANY_BANDS, 12,
                      launches=launches12["polish_core_any"],
+                     ptxas={k: list(v) for k, v in pptx.items()},
                      launches_by_path={"bench pass, polish band 12":
                                        launches12["polish_core_any"]}),
         polish_entry("polish_walk_any", "walk", ANY_BANDS, 12,

@@ -45,22 +45,32 @@
 //
 // polish_core_any_launch (any bw >= 1, the band width a run-time argument;
 // the wrapper takes it for every width but 8, 16 and 32, which the
-// --polish-band ramp from another start reaches: 3 -> 6 -> 12 -> 24 -> 48):
-// one thread per read, the dump indexed [col][word][read] so a warp's loads
-// and stores are coalesced.  A band of any width does not fit a thread's
-// registers, so the thread keeps no band state of its own: word w of
-// column col starts from word w + shift of column col - 1, read back from
-// the dump where the same thread wrote it one column earlier (shift: how
-// far the band's top moved, at most bw), or, below the old bottom word,
-// from the all-insertion fill (its sb + 32 per word).  Those loads do not
-// depend on the carry chain, so they issue ahead of it.  What bounds it:
-// one chain of P x bw dependent word steps per read, each waiting on a
-// cached load of the word written a column before; the bytes lie far below
-// (PERF.md).
+// --polish-band ramp from another start reaches: 3 -> 6 -> 12 -> 24 -> 48,
+// and 17-31 -> 34-62): up to 64 words, the same skewed wavefront, a warp
+// per read, the lane of word a being a mod bw with no power-of-two mask,
+// and past 32 words two words a lane (polish_core_any_kernel<2>), run
+// side by side; the dump column-major, [col][word][read], the layout the
+// run-time-bw walk reads.  Steep bands take the serial fill on lane 0, as
+// in the warp entries, here the one below.  Past 64 words (an explicit
+// --polish-band above 64): one thread per read (polish_core_thread_kernel)
+// keeps no band state of its own: word w of column col starts from word
+// w + shift of column col - 1, read back from the dump where the same
+// thread wrote it one column earlier.  What bounds the warp entries:
+// the P + RW + bw steps of the wavefront, a step ~80 instructions (twice
+// that with two words a lane) of one warp alone on its scheduler; the
+// thread-per-read route: P x bw dependent word steps per read, each
+// waiting on a cached load of the word written a column before; the bytes
+// lie far below either (PERF.md).
 //
-// Both load the band's plane words directly (the Pallas kernel's rolling
-// window and its fast / slow branches only ever expose the first bw window
-// words, which equal the planes at the band's rows).  band_base rounds as
+// Both load the band's plane words directly: the Pallas kernel's rolling
+// window (bw + WIN_EXTRA plane words, rolled by a one-word shift, refilled
+// at the band's top on a larger shift or when fewer than bw words remain)
+// only ever exposes its first bw words, which equal the planes at the
+// band's rows, except at bw = 1: there the shift is clamped to one word
+// before the refill test, so a band that jumps two or more words in a
+// column leaves the window behind until it runs out.  A jump like that
+// happens only above scale 16, in the serial fill, which keeps the
+// window's first row word as the reference does.  band_base rounds as
 // JAX float32 does: __fdiv_rn / __fmul_rn, truncation toward 0.
 
 #include <cstdint>
@@ -69,6 +79,7 @@
 namespace {
 
 constexpr int W = 32;
+constexpr int WIN_EXTRA = 8;               // ops/linear_align.WIN_EXTRA
 constexpr uint32_t ONES = 0xFFFFFFFFu;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -109,7 +120,8 @@ struct Band {
   }
 };
 
-// Where word w of column col of read r lies in a read-major dump.
+// Where word w of column col of read r lies in a read-major dump (the
+// template entries' layout).
 __device__ __forceinline__ size_t dump_at(int col, int w, int r, int P,
                                           int bw) {
   return ((size_t)r * P + col) * bw + w;
@@ -173,28 +185,37 @@ __device__ void fill_serial(const uint32_t* __restrict__ planes,
   }
 }
 
-// The run-time-bw entry.  The dump pointers are read as well as written
-// (the previous column's words are this column's state), so they are
-// neither const nor __restrict__: no load may take the read-only path.
-__global__ void __launch_bounds__(64)
-polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
-                       const uint32_t* __restrict__ path,     // (P, R)
-                       const int* __restrict__ read_len,      // (R,)
-                       const int* __restrict__ path_len,      // (R,)
-                       int R, int RW, int P, int bw,
-                       uint32_t* dvp,                         // (P, bw, R)
-                       uint32_t* dvn,                         // (P, bw, R)
-                       int* dsb,                              // (P, bw, R)
-                       int* __restrict__ dbase) {             // (P, R)
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const Band band(read_len[r], path_len[r], bw);
+// One read, column by column, by one thread, with the band width a
+// run-time argument: the thread keeps no band state of its own; word w of
+// column col starts from word w + shift of column col - 1, read back from
+// the dump where the same thread wrote it one column earlier (shift: how
+// far the band's top moved, at most bw), or, below the old bottom word,
+// from the all-insertion fill (its sb + 32 per word).  The dump is
+// column-major, [col][word][read].  The dump pointers are read as well as
+// written, so they are neither const nor __restrict__: no load may take the
+// read-only path.
+__device__ void fill_any_serial(const uint32_t* __restrict__ planes,
+                                const uint32_t* __restrict__ path,
+                                int rlen, int plen, int r, int R, int RW,
+                                int P, int bw, uint32_t* dvp, uint32_t* dvn,
+                                int* dsb, int* __restrict__ dbase) {
+  const Band band(rlen, plen, bw);
   auto at = [&](int col, int w) { return ((size_t)col * bw + w) * R + r; };
   int base = band.base(0);
+  // the reference's plane window: its first row word and the words it
+  // still holds (see the note above: it lags the band only at bw = 1)
+  int wbase = base, valid = bw + WIN_EXTRA;
   for (int col = 0; col < P; ++col) {
     const uint32_t pmm = path[(size_t)col * R + r];
     const int nb = max(band.base(col), base);
     const int shift = min(max(nb - base, 0), bw);
+    valid -= shift;
+    if (shift > 1 || valid < bw) {
+      wbase = nb;
+      valid = bw + WIN_EXTRA;
+    } else {
+      wbase += shift;
+    }
     const int bot = col ? dsb[at(col - 1, bw - 1)] : 0;
     int hin = 1;
 #pragma unroll 4
@@ -212,7 +233,8 @@ polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
       } else {                        // below the old bottom word
         sb = bot + (j - bw + 1) * W;
       }
-      hin = advance(vp, vn, sb, eq_of(planes, pmm, nb + w, r, R, RW), hin);
+      hin = advance(vp, vn, sb, eq_of(planes, pmm, wbase + w, r, R, RW),
+                    hin);
       const size_t o = at(col, w);
       dvp[o] = vp;
       dvn[o] = vn;
@@ -221,6 +243,23 @@ polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
     dbase[(size_t)col * R + r] = nb;
     base = nb;
   }
+}
+
+// The run-time-bw entry beyond 64 words: a thread per read.
+__global__ void __launch_bounds__(64)
+polish_core_thread_kernel(const uint32_t* __restrict__ planes, // (4, RW, R)
+                          const uint32_t* __restrict__ path,   // (P, R)
+                          const int* __restrict__ read_len,    // (R,)
+                          const int* __restrict__ path_len,    // (R,)
+                          int R, int RW, int P, int bw,
+                          uint32_t* dvp,                       // (P, bw, R)
+                          uint32_t* dvn,                       // (P, bw, R)
+                          int* dsb,                            // (P, bw, R)
+                          int* __restrict__ dbase) {           // (P, R)
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  fill_any_serial(planes, path, read_len[r], path_len[r], r, R, RW, P, bw,
+                  dvp, dvn, dsb, dbase);
 }
 
 constexpr int RING_STEPS = 256;            // steps between ring refills
@@ -344,6 +383,156 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
   }
 }
 
+// The run-time-bw warp entry: the template warp entries' skewed
+// wavefront (see polish_core_warp_kernel) with the band width a run-time
+// argument, for bw 1..64.  Word a sits on lane a mod bw and, past 32
+// words, lane (a mod bw) - 32 holds it as its second word (WORDS = 2), so
+// each lane runs one or two words a step, side by side.  The carry of
+// word a - 1 at column p comes by one shuffle per word: word a - 1 of a
+// lane's first word is the first word of the lane below, except on lane
+// 0, whose first word (a mod bw = 0) follows word bw - 1 (the second word
+// of lane bw - 33, or, with one word a lane, the first of lane bw - 1) and
+// whose second word (32) follows word 31 (lane 31's first).  Two words a
+// lane rather than two warps a read: the carry stays a shuffle, with no
+// barrier between warps at every step, and the two words' steps are
+// independent instructions that fill each other's latencies.  The dump is
+// written column-major, [col][word][read], the layout polish_walk_any
+// reads.
+template <int WORDS>
+__global__ void __launch_bounds__(32)
+polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
+                       const uint32_t* __restrict__ path,     // (P, R)
+                       const int* __restrict__ read_len,      // (R,)
+                       const int* __restrict__ path_len,      // (R,)
+                       int R, int RW, int P, int bw,
+                       uint32_t* dvp,                         // (P, bw, R)
+                       uint32_t* dvn,                         // (P, bw, R)
+                       int* dsb,                              // (P, bw, R)
+                       int* __restrict__ dbase) {             // (P, R)
+  __shared__ uint8_t ring[RING];
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int rlen = read_len[r];
+  const int plen = path_len[r];
+  const Band band(rlen, plen, bw);
+  if (!(band.scale <= MAX_WAVE_SCALE)) {
+    if (lane == 0)
+      fill_any_serial(planes, path, rlen, plen, r, R, RW, P, bw, dvp, dvn,
+                      dsb, dbase);
+    return;
+  }
+  auto col_major = [&](int col, int w) {
+    return ((size_t)col * bw + w) * R + r;
+  };
+
+  // per word slot k of this lane: its absolute word a (residue lane +
+  // 32k), plane words, state, and what it does at the coming step
+  struct Slot {
+    int a, p, nb, sb, sb_prev, hout;
+    uint32_t vp, vn, eq, pw[4];
+    bool fresh, act;
+  };
+  Slot w[WORDS];
+  const int base0 = band.base(0);
+  const int s_end = P - 1 + band.base(P - 1) + bw - 1;   // last step
+  auto load_planes = [&](Slot& x) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      x.pw[k] = (x.a >= 0 && x.a < RW) ? planes[((size_t)k * RW + x.a) * R + r]
+                                       : 0u;
+  };
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int q = lane + 32 * k;            // residue
+    w[k].a = q < bw ? base0 + (((q - base0) % bw) + bw) % bw : (1 << 29);
+    load_planes(w[k]);
+    w[k].vp = ONES; w[k].vn = 0u;
+    w[k].sb = 0; w[k].sb_prev = 0; w[k].hout = 0;
+    w[k].fresh = true; w[k].act = false;
+    w[k].p = 0; w[k].nb = 0; w[k].eq = 0u;
+  }
+  // the lane of word a - 1 for this lane's first word
+  const int src0 = lane == 0 ? (bw - 1) & 31 : lane - 1;
+  int fill_hi = 0;
+
+  auto prepare = [&](int s) {
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      Slot& x = w[k];
+      x.p = s - x.a;
+      const bool inside = x.p >= 0 && x.p < P;
+      x.nb = band.base(min(max(x.p, 0), P - 1));
+      const bool left = inside && x.a < x.nb;
+      x.act = inside && !left && x.a < x.nb + bw;
+      const uint32_t pmm = ring[x.p & (RING - 1)];
+      uint32_t eq = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) eq |= ((pmm >> j) & 1u) ? x.pw[j] : 0u;
+      x.eq = eq;
+      if (left) {                   // left the band: take the next word,
+        x.a += bw;                  // which enters bw steps from now
+        x.fresh = true;
+        load_planes(x);
+      }
+    }
+  };
+
+  for (int S = base0; S <= s_end; S += RING_STEPS) {
+    __syncwarp();
+    const int hi = min(P, S + RING_STEPS + 1
+                              - band.base(min(fill_hi, P - 1)));
+    for (int c = fill_hi + lane; c < hi; c += 32)
+      ring[c & (RING - 1)] = (uint8_t)path[(size_t)c * R + r];
+    fill_hi = max(fill_hi, hi);
+    __syncwarp();
+    if (S == base0) prepare(S);
+
+    const int Se = min(S + RING_STEPS - 1, s_end);
+    for (int s = S; s <= Se; ++s) {
+      // each word's carry (-1, 0, 1) and its sb before its last column
+      int nbr[WORDS];
+      const int c0 = w[0].sb_prev * 4 + (w[0].hout + 1);
+      if (WORDS == 1) {
+        nbr[0] = __shfl_sync(FULL, c0, src0);
+      } else {
+        const int c1 = w[WORDS - 1].sb_prev * 4 + (w[WORDS - 1].hout + 1);
+        const int x = __shfl_sync(FULL, c0, (lane - 1) & 31);
+        const int y = __shfl_sync(FULL, c1, lane == 0 ? src0 : lane - 1);
+        nbr[0] = lane ? x : y;
+        nbr[WORDS - 1] = lane ? y : x;
+      }
+#pragma unroll
+      for (int k = 0; k < WORDS; ++k) {
+        Slot& x = w[k];
+        // column 0 starts from the boundary column; a word that enters
+        // below the old bottom continues its all-insertion run
+        const bool start = x.act && x.fresh;
+        uint32_t v_p = start ? ONES : x.vp;
+        uint32_t v_n = start ? 0u : x.vn;
+        // (with one band word, the old bottom is this slot's own word,
+        // whose sb after its last column is still x.sb)
+        const int bot = (WORDS == 1 && bw == 1) ? x.sb : nbr[k] >> 2;
+        int v_s = start ? (x.p == 0 ? (x.a + 1) * W : bot + W) : x.sb;
+        const int before = v_s;
+        const int hin = x.a == x.nb ? 1 : (nbr[k] & 3) - 1;
+        const int h = advance(v_p, v_n, v_s, x.eq, hin);
+        if (x.act) {
+          x.vp = v_p; x.vn = v_n; x.sb = v_s;
+          x.sb_prev = before;
+          x.hout = h;
+          x.fresh = false;
+          const size_t o = col_major(x.p, x.a - x.nb);
+          dvp[o] = v_p;
+          dvn[o] = v_n;
+          dsb[o] = v_s;
+          if (x.a == x.nb) dbase[(size_t)x.p * R + r] = x.nb;
+        }
+      }
+      prepare(s + 1);
+    }
+  }
+}
+
 struct Args {
   const uint32_t* planes;
   const uint32_t* path;
@@ -394,8 +583,9 @@ extern "C" int polish_core_launch(const void* planes, const void* path,
   }
 }
 
-// Thread per read, any bw >= 1; the dump is written column-major: dvp /
-// dvn / dsb as (P, bw, R), dbase as (P, R).
+// Any bw >= 1; the dump is written column-major: dvp / dvn / dsb as
+// (P, bw, R), dbase as (P, R).  A warp per read up to 64 words (one word a
+// lane up to 32, two beyond), a thread per read past 64.
 extern "C" int polish_core_any_launch(const void* planes, const void* path,
                                       const void* read_len,
                                       const void* path_len, int R, int RW,
@@ -403,11 +593,25 @@ extern "C" int polish_core_any_launch(const void* planes, const void* path,
                                       void* dsb, void* dbase, void* stream) {
   if (R <= 0 || P <= 0) return 0;
   if (bw <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 32;
-  const int blocks = (R + threads - 1) / threads;
-  polish_core_any_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)planes, (const uint32_t*)path, (const int*)read_len,
-      (const int*)path_len, R, RW, P, bw, (uint32_t*)dvp, (uint32_t*)dvn,
-      (int*)dsb, (int*)dbase);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const auto* pl = (const uint32_t*)planes;
+  const auto* pa = (const uint32_t*)path;
+  const auto* rl = (const int*)read_len;
+  const auto* pn = (const int*)path_len;
+  if (bw <= 32) {
+    polish_core_any_kernel<1><<<R, 32, 0, st>>>(
+        pl, pa, rl, pn, R, RW, P, bw, (uint32_t*)dvp, (uint32_t*)dvn,
+        (int*)dsb, (int*)dbase);
+  } else if (bw <= 64) {
+    polish_core_any_kernel<2><<<R, 32, 0, st>>>(
+        pl, pa, rl, pn, R, RW, P, bw, (uint32_t*)dvp, (uint32_t*)dvn,
+        (int*)dsb, (int*)dbase);
+  } else {
+    const int threads = 32;
+    polish_core_thread_kernel<<<(R + threads - 1) / threads, threads, 0,
+                                st>>>(pl, pa, rl, pn, R, RW, P, bw,
+                                      (uint32_t*)dvp, (uint32_t*)dvn,
+                                      (int*)dsb, (int*)dbase);
+  }
   return (int)cudaGetLastError();
 }

@@ -70,18 +70,21 @@ def library_path() -> str:
         "gct_kernels", [os.path.join(CSRC, s) for s in SOURCES], NVCC_FLAGS)
 
 
-def _make(out: str) -> None:
-    """One nvcc per source, side by side, then the link."""
+def compile_sources(out: str, sources) -> str:
+    """Build the .cu files `sources` (paths) into the shared library
+    `out`: one nvcc per source, side by side, then the link.  Returns
+    nvcc's output (ptxas' report of every kernel)."""
     nvcc = _nvcc()
+    os.makedirs(_buildlib.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_buildlib.BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, s[:-3] + ".o") for s in SOURCES]
+        objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
         procs = [subprocess.Popen(
-            [nvcc] + NVCC_FLAGS + ["-c", "-o", o, os.path.join(CSRC, s)],
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", o, s],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(SOURCES, objs)]
+            for s, o in zip(sources, objs)]
         logs = [p.communicate()[0] for p in procs]
         bad = [f"{s} ({p.returncode}):\n{log}"
-               for s, p, log in zip(SOURCES, procs, logs) if p.returncode]
+               for s, p, log in zip(sources, procs, logs) if p.returncode]
         if bad:
             raise RuntimeError("nvcc failed: " + "\n".join(bad))
         r = subprocess.run([nvcc, "-shared", "-o", out] + objs,
@@ -89,9 +92,14 @@ def _make(out: str) -> None:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stderr}")
+    return "".join(f"== {os.path.basename(s)}\n{log}"
+                   for s, log in zip(sources, logs))
+
+
+def _make(out: str) -> None:
+    log = compile_sources(out, [os.path.join(CSRC, s) for s in SOURCES])
     with open(library_path() + ".log", "w") as fh:
-        for s, log in zip(SOURCES, logs):
-            fh.write(f"== {s}\n{log}")
+        fh.write(log)
 
 
 def ptxas_log() -> str:
@@ -102,6 +110,29 @@ def ptxas_log() -> str:
             return fh.read()
     except OSError:
         return ""
+
+
+def bind(so: str) -> ctypes.CDLL:
+    """Load a library built from these sources and declare its entries'
+    argument types (every pointer and the stream a c_void_p)."""
+    L = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    L.frag_core_launch.restype = I
+    L.frag_core_launch.argtypes = [P] * 8 + [I] * 6 + [P] * 4 + [P]
+    L.frag_core_carried_launch.restype = I
+    L.frag_core_carried_launch.argtypes = ([P] * 11 + [I] * 7
+                                           + [P] * 10 + [P])
+    L.frag_wide_launch.restype = I
+    L.frag_wide_launch.argtypes = [P] * 9 + [I] * 8 + [P] * 8
+    for fn in (L.polish_core_launch, L.polish_core_any_launch):
+        fn.restype = I
+        fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
+    for fn in (L.polish_walk_launch, L.polish_walk_any_launch):
+        fn.restype = I
+        fn.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
+    L.gct_error_string.restype = ctypes.c_char_p
+    L.gct_error_string.argtypes = [I]
+    return L
 
 
 def lib() -> ctypes.CDLL:
@@ -115,23 +146,7 @@ def lib() -> ctypes.CDLL:
         so = library_path()
         secs = (_buildlib.build_once(so, _make) if not os.path.exists(so)
                 else 0.0)
-        L = ctypes.CDLL(so)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        L.frag_core_launch.restype = I
-        L.frag_core_launch.argtypes = [P] * 8 + [I] * 6 + [P] * 4 + [P]
-        L.frag_core_carried_launch.restype = I
-        L.frag_core_carried_launch.argtypes = ([P] * 11 + [I] * 7
-                                               + [P] * 10 + [P])
-        L.frag_wide_launch.restype = I
-        L.frag_wide_launch.argtypes = [P] * 9 + [I] * 8 + [P] * 8
-        for fn in (L.polish_core_launch, L.polish_core_any_launch):
-            fn.restype = I
-            fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
-        for fn in (L.polish_walk_launch, L.polish_walk_any_launch):
-            fn.restype = I
-            fn.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
-        L.gct_error_string.restype = ctypes.c_char_p
-        L.gct_error_string.argtypes = [I]
+        L = bind(so)
         build_seconds = secs
         _lib = L
         return _lib

@@ -33,7 +33,7 @@ from graphchainer_torch.ops.myers import to_i32_bits
 
 MAX_B = 128        # band slots of frag_core's entries (band_in is int8)
 MAX_WIDE_B = 4096  # band slots (and levels) of frag_wide
-WIDE_THREADS = 128  # threads of a frag_wide block (its slices a round)
+WIDE_THREADS = 128  # slices of a frag_wide round (its widest block)
 
 
 def frag_core(node_eq, node_len, band_nodes, band_in, band_level,

@@ -15,7 +15,8 @@ from graphchainer_torch.ops import linear_align, polish_kernel
 from graphchainer_torch.ops.myers import to_i32_bits, u32
 
 from test_torch_common import (cuda_device, host_args,  # noqa
-                               lane_major_inputs, mixed_batch, t64)
+                               lane_major_inputs, mixed_batch,
+                               pack_polish_pairs, t64)
 
 
 def test_cpu_tensors_run_plain_versions():
@@ -48,9 +49,12 @@ def test_cpu_tensors_run_plain_versions():
 @pytest.mark.parametrize("bw", [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64,
                                 100])
 def test_polish_entry_is_chosen_by_band_width(bw):
-    """The warp-per-read entries take the default band ramp's widths, the
-    run-time-bw entries every other width, for any --polish-band start."""
-    want = "warp" if bw in (8, 16, 32) else "any"
+    """The template warp-per-read entries take the default band ramp's
+    widths, the run-time-bw entries every other width, for any
+    --polish-band start: the fill a warp per read up to 64 words, a thread
+    per read past them."""
+    want = ("warp" if bw in (8, 16, 32) else "any" if bw <= 64
+            else "any-thread")
     assert polish_kernel.entry_for(bw) == want
 
 
@@ -286,8 +290,8 @@ def test_frag_kernel_matches_plain(cuda_device, case):
                        ref[3].permute(2, 1, 0).cpu())
 
 
-_GPU_BANDS = [3, 4, 8, 12, 16, 32, 48]   # both entries; 3, 12, 48 ramp
-                                         # from a start of 3 or 12
+_GPU_BANDS = [1, 2, 3, 4, 5, 8, 12, 16, 32, 33, 48, 64]   # both entries;
+# 3, 12, 48 ramp from a start of 3 or 12; 33 and 64 take two words a lane
 
 
 @pytest.mark.gpu
@@ -306,6 +310,27 @@ def test_polish_kernel_matches_plain(cuda_device, bw):
     assert torch.equal(got[3].long().cpu(), ref[3].cpu())
     name = "polish_core" if bw in (8, 16, 32) else "polish_core_any"
     assert _cuda.launches()[name] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bw", [1, 2, 12, 33, 64])
+def test_polish_kernel_steep_bands_match_plain(cuda_device, bw):
+    """workload.polish_hard_pairs: reads 20 and 40 times their paths'
+    length, whose bands jump several words a column and take the serial
+    fill inside the warp kernels, where at bw = 1 the reference's plane
+    window lags the band (the shift is clamped to one word before its
+    refill test), mixed with ordinary reads, empty reads and paths."""
+    from graphchainer_torch.workload import polish_hard_pairs
+    pairs = [(r, p) for _, r, p in polish_hard_pairs(5, 4, 1500)]
+    planes_t, path_t, rl, pl = (t64(a).to(cuda_device) for a in
+                                pack_polish_pairs(pairs, 2048, 2048))
+    ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
+    got = polish_kernel.polish_core_cuda(
+        to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int(), bw)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = u32(g) if i < 2 else g.long()
+        assert torch.equal(g.cpu(), r.cpu()), i
 
 
 @pytest.mark.gpu
@@ -430,11 +455,12 @@ def test_split_lookup_is_published_whole():
 
 # ---- frag_wide: the F-major DP of optimal mode and seedless DP ----------
 
-def wide_hard_case(seed=3, full_start=True):
-    """workload.frag_wide_hard_batch as align_fragments' CPU arguments in
-    the kernel's types (args, keyword args)."""
+def wide_hard_case(seed=3, full_start=True, S=3):
+    """workload.frag_wide_hard_batch (S slices) as align_fragments' CPU
+    arguments in the kernel's types (args, keyword args)."""
     from graphchainer_torch.workload import frag_wide_hard_batch
-    eq, ln, bn, bi, bl, ss, req, rows, base, nl = frag_wide_hard_batch(seed)
+    eq, ln, bn, bi, bl, ss, req, rows, base, nl = frag_wide_hard_batch(
+        seed, S=S)
     t = torch.from_numpy
     return ((t(eq.view(np.int32)), t(ln), t(bn), t(bi), t(ss),
              t(req.view(np.int32)), t(rows)),
@@ -509,7 +535,10 @@ ptxas info    : Used 96 registers, used 1 barriers
 def wide_bench_case(case):
     """align_fragments' arguments of the bench graph (bench.py's 60 kbp
     graph) on the CPU: a whole-component band (B = 4096) or the seedless
-    tiles (B = 1024) against a 64-row prefix of a bench read."""
+    tiles (B = 1024) against a 64-row prefix of a bench read; the tiles
+    against a 512-row prefix (S = 16, more slices than a block's first
+    warp); and the tiles with one in-edge turned to come from a higher
+    level, which sends every tile of that band off the wavefront."""
     from graphchainer_torch.align.seedless import FullstartScanner
     from graphchainer_torch.models.optimal import OptimalAlignerModel
     from graphchainer_torch.workload import bench_workload
@@ -522,20 +551,29 @@ def wide_bench_case(case):
         scan = FullstartScanner(g, OptimalAlignerModel(
             g, index, device="cpu").gx, device="cpu")
         args, kw = scan.scan_inputs(read, offsets=(0,), prefix_rows=64)[:2]
+        if case == "B1024-irregular":
+            bi, bl = args[3].clone(), kw["band_level"]
+            f, b = 0, int(torch.nonzero(bl[0] == 5)[0])
+            bi[:, b, 0] = int(torch.nonzero(bl[0] == 9)[0])
+            args = args[:3] + (bi,) + args[4:]
     # the CPU route keeps node words as int64, the kernel takes their bits
     return (to_i32_bits(args[0]),) + args[1:], kw
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["B64", "B64-no-full-start", "B1024",
+@pytest.mark.parametrize("case", ["B64", "B64-no-full-start", "B64-S40",
+                                  "B64-S150", "B1024", "B1024-irregular",
                                   "B4096"])
 def test_frag_wide_matches_plain(cuda_device, case):
     """The kernel against its plain version (align_fragments_plain on
     the CPU, on the same inputs), every output exact: the hard batch
     (int8 pointers, int16 in-edges, pad and length-0 slots, fragments on
-    the level-by-level path) and the bench graph's bands."""
+    the level-by-level path) at 3 slices, at 40 (a block of two warps)
+    and at 150 (two rounds of 128 slices), and the bench graph's bands."""
     if case.startswith("B64"):
-        args, kw = wide_hard_case(full_start=case == "B64")
+        S = int(case[5:]) if case.startswith("B64-S") else 3
+        args, kw = wide_hard_case(full_start=case != "B64-no-full-start",
+                                  S=S)
     else:
         args, kw = wide_bench_case(case)
     ref = frag_align.align_fragments_plain(*args, **kw, want_state=False)
