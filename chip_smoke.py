@@ -426,6 +426,8 @@ WARP_BANDS = (8, 16, 32)            # the default ramp: the warp entries
 # widths 1, 2 and 5, and 33 and 64 (two band words a lane)
 ANY_BANDS = (1, 2, 3, 5, 6, 12, 24, 33, 48, 64)
 EDGE_BANDS = (1, 12, 33, 64)        # the band-shift batch and the hard pairs
+WIDE_BAND = 100     # past 64 words: the run-time fill's thread per read,
+                    # on the band-shift batch only
 
 
 # ---------------------------------------------------------------- bounds
@@ -1523,7 +1525,7 @@ def main() -> int:
                        ("hard cases mixed in", hard, 8, small_cap, False),
                        ("hard cases mixed in", hard, 16, 0, False)]
                     + [("48 bp paths, multi-word shifts", pairs48, bw, 0,
-                        False) for bw in EDGE_BANDS]
+                        False) for bw in EDGE_BANDS + (WIDE_BAND,)]
                     + [("hard cases mixed in", hard, bw,
                         small_cap if bw == 12 else 0, False)
                        for bw in EDGE_BANDS])

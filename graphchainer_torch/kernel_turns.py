@@ -1,6 +1,6 @@
 """Time two builds of the redesigned kernels in turns on one card.
 
-  python -m graphchainer_torch.kernel_turns --other DIR [--split]
+  python -m graphchainer_torch.kernel_turns --other DIR [--out FILE]
 
 DIR is the root of another checkout of this repository (an earlier
 commit, unpacked with `git archive`).  Both trees' csrc/*.cu are built,
@@ -10,21 +10,10 @@ with a whole 3 kbp read, the seedless tiles) and the run-time-bw polish
 fill polish_core_any (the 128-read bench polish batch at bw 1, 2, 3, 5,
 6, 12, 24, 33, 48 and 64, and at 8 / 16 / 32 beside the template warp
 entries), each kernel runs in turns, other - this - this - other,
-through the port's own wrappers; every output of this tree's build must
-equal the other's.  The times are CUDA events over
-a few launches (chip_smoke.cuda_ms's method).
-
---split times variants of DIR's csrc/frag_wide.cu instead (the design
-before the redesign: 32-row merge loops, the free-start merge in every
-column of slice 0), in turns at its three timed shapes.  Each variant
-switches one more part of a step off by a text substitution in that
-source: the free-start merge, every merge, the end words' loads from the
-scratch, the columns past column 0, and the step's work altogether (the
-barrier alone).  Their outputs are wrong; they only split a step's time.
---split-this does the same for this tree's csrc/frag_wide.cu (no --other
-needed), and one of its variants ("cycle profile") reads clock64() around
-a step's parts and reports each thread's cycles a slot in column 0 and in
-the columns, and a step's.
+through this tree's wrappers, with the loaded library swapped between
+the builds; every output of this tree's build must equal the other's.
+The times are CUDA events over a few launches (chip_smoke.cuda_ms's
+method).
 
 Prints one JSON object, with --out FILE also written there with the
 ptxas report of every build.
@@ -40,80 +29,6 @@ import sys
 import time
 
 from graphchainer_torch.ops import _cuda
-
-_NO_FREE_START = ("if (fr.full_start && wb >= fbase) {", "if (false) {")
-_NO_MERGE = ("  int s1 = ba, s2 = bb;\n",
-             "  before = min(ba, bb);\n  return a;\n  int s1 = ba, s2 = bb;\n")
-_NO_LOAD = ("      ew = cur[uc];",
-            "      ew = make_uint4(ONES, 0u, (uint32_t)(fr.base + W * (s + 2)),"
-            " 0u);")
-_COLUMN_0 = ("  const int last = min(len, W) - 1;", "  const int last = 0;")
-_NO_STEP = ("        if (t < lanes && p >= 0 && p < n_proc) {",
-            "        if (false) {")
-SPLIT_VARIANTS = (
-    ("as is", []),
-    ("no free-start merge", [_NO_FREE_START]),
-    ("no merges", [_NO_MERGE]),
-    ("no merges, no end-word loads", [_NO_MERGE, _NO_LOAD]),
-    ("no merges, no end-word loads, column 0 only",
-     [_NO_MERGE, _NO_LOAD, _COLUMN_0]),
-    ("barrier only", [_NO_STEP]),
-)
-# the same split of this tree's design (--split-this)
-_NEW_NO_MERGE = ("  const uint32_t pb = b.vp & ~b.vn, nb = b.vn & ~b.vp;\n",
-                 "  before = min(ba, bb);\n  return a;\n"
-                 "  const uint32_t pb = b.vp & ~b.vn, nb = b.vn & ~b.vp;\n")
-_NEW_NO_LOAD = [
-    ("        w = Word{r[0], r[nt], (int)r[2 * nt]};",
-     "        w = Word{ONES, 0u, fr.base + W * (s + 2)}; (void)r;"),
-    ("        const uint4 ew = cur[uc];\n        w = Word{ew.x, ew.y, "
-     "(int)ew.z};", "        w = Word{ONES, 0u, fr.base + W * (s + 2)};")]
-_NO_STORES = [("  *bin_out = (PTR)cbest;\n", "  (void)bin_out;\n"),
-              ("  cur[b] = make_uint4(ew.vp, ew.vn, (uint32_t)ew.sb, 0u);\n",
-               "")]
-_NEW_COLUMN_0 = (
-    "  const int last = min(len, W) - 1;", "  const int last = 0;")
-# per-thread clock64() sums, written over end_score[0] (cycles a slot in
-# column 0 and in the columns, cycles a step at the barrier and in all)
-_PROFILE = [
-    ("constexpr uint32_t BYTE_LSB = 0x01010101u;\n",
-     "constexpr uint32_t BYTE_LSB = 0x01010101u;\n"
-     "__device__ long long fw_mark[NT];\n"),
-    ("  // ---- columns 1 .. len - 1\n",
-     "  fw_mark[threadIdx.x] = clock64();\n  // ---- columns 1 .. len - 1\n"),
-    ("  if (!irregular) {\n",
-     "  long long pc0 = 0, pcol = 0, pwait = 0, pstep = 0;\n"
-     "  int pn = 0, pk = 0;\n  if (!irregular) {\n"),
-    ("        if (t < lanes && p >= 0 && p < n_proc)\n"
-     "          process<PTR, true>(fr, b, p, s, rqt, u0, u1, eb, eb, ring + t,\n"
-     "                             bin_f + (size_t)b * S + s, es_f, ec_f);\n"
-     "        __syncthreads();\n",
-     "        const long long q0 = clock64();\n        bool did = false;\n"
-     "        if (t < lanes && p >= 0 && p < n_proc) {\n"
-     "          process<PTR, true>(fr, b, p, s, rqt, u0, u1, eb, eb, ring + t,\n"
-     "                             bin_f + (size_t)b * S + s, es_f, ec_f);\n"
-     "          did = true;\n        }\n"
-     "        const long long q1 = clock64();\n        __syncthreads();\n"
-     "        const long long q2 = clock64();\n"
-     "        if (did) { pc0 += fw_mark[t] - q0; pcol += q1 - fw_mark[t]; "
-     "++pn; }\n        pwait += q2 - q1; pstep += q2 - q0; ++pk;\n"),
-    ("    best_col[f] = ec_f[red_b[0]];\n  }\n",
-     "    best_col[f] = ec_f[red_b[0]];\n  }\n  __syncthreads();\n"
-     "  if (f == 0) {\n    es_f[4 * t] = pn ? (int)(pc0 / pn) : 0;\n"
-     "    es_f[4 * t + 1] = pn ? (int)(pcol / pn) : 0;\n"
-     "    es_f[4 * t + 2] = pk ? (int)(pwait / pk) : 0;\n"
-     "    es_f[4 * t + 3] = pk ? (int)(pstep / pk) : 0;\n  }\n"),
-]
-THIS_SPLIT_VARIANTS = (
-    ("as is", []),
-    ("cycle profile", _PROFILE),
-    ("no merges", [_NEW_NO_MERGE]),
-    ("column 0 only", [_NEW_COLUMN_0]),
-    ("column 0 only, no merges", [_NEW_COLUMN_0, _NEW_NO_MERGE]),
-    ("barrier only", [("        if (t < lanes && p >= 0 && p < n_proc)\n"
-                       "          process", "        if (false)\n"
-                       "          process")]),
-)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -144,27 +59,6 @@ def build(tag: str, sources) -> tuple:
                        f"libturns_{tag}_{h.hexdigest()[:12]}.so")
     log = _cuda.compile_sources(out, sources)
     return _cuda.bind(out), log
-
-
-def variant_sources(root: str, subs, tag: str) -> list:
-    """A tree's sources, frag_wide.cu with the substitutions."""
-    src = os.path.join(root, "graphchainer_torch", "csrc")
-    paths = [os.path.abspath(os.path.join(src, s)) for s in _cuda.SOURCES]
-    if not subs:
-        return paths
-    with open(os.path.join(src, "frag_wide.cu")) as fh:
-        text = fh.read()
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise RuntimeError(f"split variant {tag}: {old!r} occurs "
-                               f"{text.count(old)} times")
-        text = text.replace(old, new)
-    dst = os.path.join(_cuda._buildlib.BUILD_DIR, f"frag_wide_{tag}.cu")
-    os.makedirs(os.path.dirname(dst), exist_ok=True)
-    with open(dst, "w") as fh:
-        fh.write(text)
-    return [dst if os.path.basename(p) == "frag_wide.cu" else p
-            for p in paths]
 
 
 def wide_cases(dev):
@@ -240,15 +134,10 @@ def in_turns(libs, order, fn, reps):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", help="root of the other checkout")
-    ap.add_argument("--split", action="store_true",
-                    help="time variants of the other tree's frag_wide.cu")
-    ap.add_argument("--split-this", action="store_true",
-                    help="time variants of this tree's frag_wide.cu")
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout")
     ap.add_argument("--out", help="write the result as JSON to this file")
     opts = ap.parse_args()
-    if not opts.split_this and not opts.other:
-        ap.error("--other is needed unless --split-this")
     import torch
     if not torch.cuda.is_available():
         print("kernel_turns: needs a CUDA card", file=sys.stderr)
@@ -260,24 +149,16 @@ def main() -> int:
     dev = torch.device("cuda")
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
-    split = (SPLIT_VARIANTS if opts.split
-             else THIS_SPLIT_VARIANTS if opts.split_this else None)
-    if split:
-        root = opts.other if opts.split else here
-        specs = [(f"v{i}", variant_sources(root, subs, f"v{i}"))
-                 for i, (_, subs) in enumerate(split)]
-    else:
-        specs = [("other", [os.path.join(opts.other, "graphchainer_torch",
-                                          "csrc", s) for s in _cuda.SOURCES]),
-                 ("this", [os.path.join(here, "graphchainer_torch", "csrc",
-                                        s) for s in _cuda.SOURCES])]
+    specs = [(tag, [os.path.join(root, "graphchainer_torch", "csrc", s)
+                    for s in _cuda.SOURCES])
+             for tag, root in (("other", opts.other), ("this", here))]
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(specs)) as pool:
         built = dict(zip([t for t, _ in specs],
                          pool.map(lambda ts: build(*ts), specs)))
     libs = {k: v[0] for k, v in built.items()}
     build_s = time.perf_counter() - t0
-    _cuda._lib = libs[specs[0][0]]
+    _cuda._lib = libs["other"]
     model, reads, cases = wide_cases(dev)
     result = {"device": smi, "build_s": round(build_s, 2), "frag_wide": []}
     names = list(libs)
@@ -288,57 +169,40 @@ def main() -> int:
         row = dict(label=label, F=int(args[2].shape[0]),
                    B=int(args[2].shape[1]), S=kw["n_slices"],
                    n_levels=kw["n_levels"], max_in=kw["max_in"])
-        if not split:
-            outs = {}
-            for name in names:
-                _cuda._lib = libs[name]
-                outs[name] = [x.cpu() for x in run() if x is not None]
-            row["equal"] = all(torch.equal(a, b) for a, b in
-                               zip(outs["other"], outs["this"]))
-        if split and "cycle profile" in [n for n, _ in split] \
-                and row["F"] == 1:
-            tag = f"v{[n for n, _ in split].index('cycle profile')}"
-            _cuda._lib = libs[tag]
-            es = run().end_score[0].cpu()
-            nt = 32 if row["S"] <= 32 else 64 if row["S"] <= 64 else 128
-            prof = es[:4 * nt].view(nt, 4)[:min(row["S"], nt)].double()
-            row["cycles"] = {k: [round(float(prof[:, i].mean()), 1),
-                                 int(prof[:, i].max())] for i, k in
-                             enumerate(("column 0 a slot", "columns a slot",
-                                        "barrier wait a step",
-                                        "a step"))}
+        outs = {}
+        for name in names:
+            _cuda._lib = libs[name]
+            outs[name] = [x.cpu() for x in run() if x is not None]
+        row["equal"] = all(torch.equal(a, b) for a, b in
+                           zip(outs["other"], outs["this"]))
         ms = in_turns(libs, order, run, reps)
         row["ms"] = {k: [round(x, 4) for x in v] for k, v in ms.items()}
         row["steps"] = row["B"] + min(row["S"], 128) - 1
         result["frag_wide"].append(row)
         print(json.dumps(row), flush=True)
-    if split:
-        result["variants"] = {f"v{i}": name for i, (name, _)
-                              in enumerate(split)}
-    else:
-        k_in = polish_batch(model, reads, dev)
-        result["polish_core_any"] = []
-        for bw in (1, 2, 3, 5, 6, 8, 12, 16, 24, 32, 33, 48, 64):
-            def fill():
-                return fill_any(k_in, bw)
-            outs = {}
-            for name in names:
-                _cuda._lib = libs[name]
-                outs[name] = [x.cpu() for x in fill()]
-            row = dict(bw=bw, equal=all(torch.equal(a, b) for a, b in
-                                        zip(outs["other"], outs["this"])))
-            row["ms"] = {k: [round(x, 4) for x in v] for k, v in
-                         in_turns(libs, order, fill, 5).items()}
-            if polish_kernel.entry_for(bw) == "warp":
-                # the template warp entry on the same batch, this tree
-                _cuda._lib = libs["this"]
-                warp = polish_kernel.polish_core_cuda(*k_in, bw)
-                row["warp_equal"] = all(torch.equal(a.cpu(), b) for a, b
-                                        in zip(warp, outs["this"]))
-                row["warp_ms"] = round(cuda_ms(
-                    lambda: polish_kernel.polish_core_cuda(*k_in, bw), 5), 4)
-            result["polish_core_any"].append(row)
-            print(json.dumps(row), flush=True)
+    k_in = polish_batch(model, reads, dev)
+    result["polish_core_any"] = []
+    for bw in (1, 2, 3, 5, 6, 8, 12, 16, 24, 32, 33, 48, 64):
+        def fill():
+            return fill_any(k_in, bw)
+        outs = {}
+        for name in names:
+            _cuda._lib = libs[name]
+            outs[name] = [x.cpu() for x in fill()]
+        row = dict(bw=bw, equal=all(torch.equal(a, b) for a, b in
+                                    zip(outs["other"], outs["this"])))
+        row["ms"] = {k: [round(x, 4) for x in v] for k, v in
+                     in_turns(libs, order, fill, 5).items()}
+        if polish_kernel.entry_for(bw) == "warp":
+            # the template warp entry on the same batch, this tree
+            _cuda._lib = libs["this"]
+            warp = polish_kernel.polish_core_cuda(*k_in, bw)
+            row["warp_equal"] = all(torch.equal(a.cpu(), b) for a, b
+                                    in zip(warp, outs["this"]))
+            row["warp_ms"] = round(cuda_ms(
+                lambda: polish_kernel.polish_core_cuda(*k_in, bw), 5), 4)
+        result["polish_core_any"].append(row)
+        print(json.dumps(row), flush=True)
     result["ptxas"] = {k: [ln.strip() for ln in v[1].splitlines()
                            if "registers" in ln or "stack frame" in ln]
                        for k, v in built.items()}

@@ -15,15 +15,15 @@ a call takes (entry_for): the template warp-per-read entries are built for
 bw 8, 16 and 32, the widths of the default polish band ramp; every other
 width (bw >= 1: a --polish-band start of 3 ramps 3 -> 6 -> 12 -> 24 -> 48)
 takes the run-time-bw entries, which take the band width as a run-time
-argument.  The run-time fill runs a warp per read up to 64 band words
-(one word a lane up to 32, two beyond) and a thread per read past 64
-("any-thread"); the run-time walk is a thread per read.  The template
-entries keep the dump read-major in memory, (R, P, bw) and (R, P), and
-the run-time entries column-major, (P, bw, R) and (P, R); polish_core
-returns (P, bw, R) / (P, R) views either way, equal element for element,
-and polish_walk copies a dump that does not lie the way its entry reads
-it (never on the pipeline's path: each fill's dump goes to the walk of
-the same entry).
+argument.  The run-time fill's launcher picks its route from the width:
+a warp per read up to 64 band words (one word a lane up to 32, two
+beyond), a thread per read past 64; the run-time walk is a thread per
+read.  The template entries keep the dump read-major in memory,
+(R, P, bw) and (R, P), and the run-time entries column-major, (P, bw, R)
+and (P, R); polish_core returns (P, bw, R) / (P, R) views either way,
+equal element for element, and polish_walk copies a dump that does not
+lie the way its entry reads it (never on the pipeline's path: each fill's
+dump goes to the walk of the same entry).
 """
 from __future__ import annotations
 
@@ -34,18 +34,14 @@ from graphchainer_torch.ops import linear_align as _la
 from graphchainer_torch.ops.myers import to_i32_bits
 
 WARP_BAND_WORDS = (8, 16, 32)           # band widths with a warp per read
-ANY_WARP_MAX_WORDS = 64                 # the run-time fill's warp entry
 
 
 def entry_for(bw: int) -> str:
-    """The fill kernel a band width takes: "warp" (the template warp
-    entries), "any" (the run-time-bw warp entry) or "any-thread" (the
-    run-time-bw thread-per-read route, past 64 words); the last two launch
-    through one C entry, which refuses a width below 1.  The walk takes
-    its template entry for "warp" and its run-time entry otherwise."""
-    if bw in WARP_BAND_WORDS:
-        return "warp"
-    return "any" if bw <= ANY_WARP_MAX_WORDS else "any-thread"
+    """The kernel entry a band width takes: "warp" (the template warp
+    entries) or "any" (the run-time-bw entries, whose launch refuses a
+    width below 1; the run-time fill's launcher runs a warp per read up
+    to 64 words and a thread per read beyond)."""
+    return "warp" if bw in WARP_BAND_WORDS else "any"
 
 
 def polish_core(planes_t, path_t, read_len, path_len, bw: int):

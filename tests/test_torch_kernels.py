@@ -49,12 +49,11 @@ def test_cpu_tensors_run_plain_versions():
 @pytest.mark.parametrize("bw", [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64,
                                 100])
 def test_polish_entry_is_chosen_by_band_width(bw):
-    """The template warp-per-read entries take the default band ramp's
-    widths, the run-time-bw entries every other width, for any
-    --polish-band start: the fill a warp per read up to 64 words, a thread
-    per read past them."""
-    want = ("warp" if bw in (8, 16, 32) else "any" if bw <= 64
-            else "any-thread")
+    """The warp-per-read entries take the default band ramp's widths, the
+    run-time-bw entries every other width, for any --polish-band start
+    (their fill a warp per read up to 64 words, a thread per read past
+    them: test_polish_kernel_matches_plain at 100)."""
+    want = "warp" if bw in (8, 16, 32) else "any"
     assert polish_kernel.entry_for(bw) == want
 
 
@@ -290,8 +289,9 @@ def test_frag_kernel_matches_plain(cuda_device, case):
                        ref[3].permute(2, 1, 0).cpu())
 
 
-_GPU_BANDS = [1, 2, 3, 4, 5, 8, 12, 16, 32, 33, 48, 64]   # both entries;
-# 3, 12, 48 ramp from a start of 3 or 12; 33 and 64 take two words a lane
+_GPU_BANDS = [1, 2, 3, 4, 5, 8, 12, 16, 32, 33, 48, 64, 100]   # both
+# entries; 3, 12, 48 ramp from a start of 3 or 12; 33 and 64 take two
+# words a lane, 100 the run-time fill's thread per read
 
 
 @pytest.mark.gpu
