@@ -17,14 +17,16 @@ Phases (any failure raises and exits non-zero before the result line):
      frame or spill fails); polish_core and polish_walk (score +
      backtrace over the fill's dump) on the main path's 128 reads against
      their stitched paths at every band width of the default ramp (8, 16,
-     32: the template warp entries) and of the ramp from a start of 3 or
-     12 (3, 6, 12, 24, 48: the run-time-bw entries), at the edge widths 1,
+     32: the fill's template warp entries) and of the ramp from a start of
+     3 or 12 (3, 6, 12, 24, 48: the run-time-bw fill), at the edge widths 1,
      2 and 5 and at 33 and 64 (two band words a lane), each timed there
      with its bound, on a batch whose 48 bp paths force band shifts of
      several words per column and on workload.polish_hard_pairs (empty
      reads and paths, long indels, steep bands mixed with ordinary reads)
      at bw 1, 8, 12, 33 and 64 (and 16 on the hard pairs), nvcc's report
-     of the run-time fill's warp entry (no stack frame or spill), under an
+     of the run-time fill's warp entry, of the walk's warp kernel (every
+     stride class; the walk is one entry for every width) and of the
+     carried entry's kernel (no stack frame or spill), under an
      ops_cap that long walks overflow too (the plain
      polish versions run on the CPU, in processes of their own, and their
      dumps are compared by sha256 digest, their rows whole); and the
@@ -35,13 +37,15 @@ Phases (any failure raises and exits non-zero before the result line):
      every output exact;
   3. the main path: bench.py's workload (960 reads of ~3 kbp at 10% error
      on the synthetic 60 kbp graph) through ChainerModel.align_batch on
-     cuda, one warm pass and one timed pass; frag_core and the warp
-     entries of both polish kernels must have launched in the timed pass;
+     cuda, one warm pass and one timed pass; frag_core, the polish
+     fill's warp entries and the walk (counted as polish_walk at the
+     default ramp's widths) must have launched in the timed pass;
      accuracy bounds; and 8 reads run again on the CPU (the plain
      versions) must give the same alignments, and so must 4 reads with
      every read compared with the GA baseline (the rescue path, through
      the carried entry); then the whole bench pass from a polish band of
-     12 words (ramp 12 -> 24 -> 48, the run-time-bw entries);
+     12 words (ramp 12 -> 24 -> 48, the run-time-bw entries), its polish
+     stage printed beside the default pass's;
   4. a real-size graph: 128 reads on a 5 Mbp graph from the same
      generator, then its MEM index (suffix array built, saved as
      .sa.npz and loaded back equal) and the 128 reads with MEM seeds;
@@ -49,7 +53,9 @@ Phases (any failure raises and exits non-zero before the result line):
      reads lapping cyclic graphs) and the CLC path with its GA rescue at
      the default config on the golden_badread set (80 reads), each held
      to the pins of tests/test_cyclic.py and tests/test_parity.py against
-     the reference binary's edit distances (tests/data/golden_*.json);
+     the reference binary's edit distances (tests/data/golden_*.json),
+     with each run's stage seconds (GA mode's ga_window stage: the
+     carried entry's windows);
   6. frag_wide (the F-major full-start DP of optimal mode and seedless
      DP) against its plain version on the CPU, every output exact: a
      whole component of the bench graph (B=4096) with a 64-row read
@@ -232,7 +238,8 @@ _TEMPLATE_ARG = r"Li(-?\d+)E|Lb([01])E|([as])"
 def ptxas_report(log_text: str, kernel: str):
     """{instantiation: (registers, stack frame, spill stores, spill loads)}
     of one kernel from nvcc -Xptxas -v output; an instantiation's key
-    names its template arguments (integers, bools, int8_t / int16_t)."""
+    names its template arguments (integers, bools, int8_t / int16_t), a
+    kernel that is no template its name alone."""
     import re
     out, fn = {}, None
     for line in log_text.splitlines():
@@ -241,13 +248,14 @@ def ptxas_report(log_text: str, kernel: str):
         if m:
             fn = m.group(1)
             continue
-        m = re.search(rf"\d+{kernel}I(.*?)EEv", fn or "")
+        m = re.search(rf"\d+{kernel}(?:I(.*?)EEv|Ev|EP)", fn or "")
         if not m:
             continue
         args = [n if n else ("false", "true")[int(b)] if b
                 else {"a": "int8_t", "s": "int16_t"}[c]
-                for n, b, c in re.findall(_TEMPLATE_ARG, m.group(1))]
-        key = f"{kernel}<{', '.join(args)}>"
+                for n, b, c in re.findall(_TEMPLATE_ARG, m.group(1) or "")]
+        key = (f"{kernel}<{', '.join(args)}>" if m.group(1) is not None
+               else kernel)
         regs, stack, st, ld = out.get(key, (None, None, None, None))
         m2 = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                        r"(\d+) bytes spill loads", line)
@@ -283,16 +291,26 @@ def check_frag_all(model, reads, dev):
         check_frag("hard batch, wide", *frag_hard_inputs(
             dev, 4, F=64, B=128, max_in=12, S=2)),
     ]
-    ptx = ptxas_report(_cuda.ptxas_log(), "frag_core_kernel")
-    log(f"ptxas, frag_core_kernel<fragments a block> (registers, stack "
+    ptx = check_ptxas("frag_core_kernel", 2, "fragments a block")
+    return dict(cases=cases, ptxas=ptx)
+
+
+def check_ptxas(kernel: str, n: int, args: str = ""):
+    """nvcc's report of a kernel's n instantiations (registers, stack
+    frame, spill stores and loads), logged; any stack frame or spill
+    fails."""
+    from graphchainer_torch.ops import _cuda
+    ptx = ptxas_report(_cuda.ptxas_log(), kernel)
+    log(f"ptxas, {kernel}{f'<{args}>' if args else ''} (registers, stack "
         f"frame, spill stores, spill loads bytes): {ptx}")
-    if not ptx:
-        raise AssertionError("no ptxas report of frag_core_kernel")
+    if len(ptx) != n:
+        raise AssertionError(f"no ptxas report of {n} {kernel} "
+                             f"instantiations: {ptx}")
     for name, (_, stack, st, ld) in ptx.items():
         if stack or st or ld:
             raise AssertionError(f"{name}: {stack} bytes stack frame, "
                                  f"{st} / {ld} bytes spilled")
-    return dict(cases=cases, ptxas=ptx)
+    return ptx
 
 
 def polish_inputs(pairs, dev):
@@ -737,10 +755,13 @@ def run_golden(dev):
         wall = time.perf_counter() - t0
         launches = _cuda.launches()
         counters = timers.counters()
+        stages = {k: round(v[0], 4) for k, v in timers.snapshot().items()}
         log(f"{name}: {len(reads)} reads in {wall:.3f} s; launches "
             f"{json.dumps(launches)}; escalated reads "
             f"{counters.get('escalated_reads', 0)}, rescued reads "
-            f"{counters.get('rescued_reads', 0)}")
+            f"{counters.get('rescued_reads', 0)}; ga_window stage "
+            f"{stages.get('ga_window', 0.0)} s; stage seconds "
+            f"(thread-summed) {json.dumps(stages)}")
         if counters.get("rescued_reads", 0):
             need = need + ("frag_core_carried",)
         for k in need:
@@ -748,7 +769,7 @@ def run_golden(dev):
                 raise AssertionError(f"{name}: kernel {k} never launched")
         out[name] = dict(score_golden(name, model.gx, reads, alns,
                                       golden(f"{name}.json"), *pins),
-                         launches=launches, seconds=wall,
+                         launches=launches, seconds=wall, stages=stages,
                          escalated=counters.get("escalated_reads", 0),
                          rescued=counters.get("rescued_reads", 0))
     return out
@@ -1557,16 +1578,10 @@ def main() -> int:
            for (label, pr, bw, _, timed), f in zip(polish_cases,
                                                     polish_plain)]
     pol_main = {c["bw"]: c for c in pol if "fill_ms" in c}
-    pptx = ptxas_report(_cuda.ptxas_log(), "polish_core_any_kernel")
-    log(f"ptxas, polish_core_any_kernel<words a lane> (registers, stack "
-        f"frame, spill stores, spill loads bytes): {pptx}")
-    if len(pptx) != 2:
-        raise AssertionError(f"no ptxas report of both "
-                             f"polish_core_any_kernel instantiations: {pptx}")
-    for name, (_, stack, st, ld) in pptx.items():
-        if stack or st or ld:
-            raise AssertionError(f"{name}: {stack} bytes stack frame, "
-                                 f"{st} / {ld} bytes spilled")
+    pptx = check_ptxas("polish_core_any_kernel", 2, "words a lane")
+    wptx_walk = check_ptxas("polish_walk_tile_kernel", 4,
+                            "stride class")
+    cptx = check_ptxas("frag_carried_kernel", 1)
 
     # ---- 3. the main path
     batch = 128
@@ -1647,7 +1662,9 @@ def main() -> int:
     stages12 = {k: round(v[0], 3) for k, v in timers.snapshot().items()}
     log(f"polish band 12: {n_reads} reads in {wall12:.3f} s = "
         f"{n_reads / wall12:.2f} reads/s; aligned_fraction {af12:.4f}, "
-        f"mean_norm_edit_distance {ned12:.4f}; launches "
+        f"mean_norm_edit_distance {ned12:.4f}; polish stage "
+        f"{stages12.get('polish', 0.0)} s (the default pass's "
+        f"{stages.get('polish', 0.0)} s); launches "
         f"{json.dumps(launches12)}; stage seconds (thread-summed) "
         f"{json.dumps(stages12)}")
     for name in ("frag_core",) + ANY_PATH_KERNELS:
@@ -1700,16 +1717,7 @@ def main() -> int:
         f"{wide_shape(fa, fkw)}: kernel {full_ms:.3f} ms, bound "
         f"{full_bnd[0]:.5f} ms by {full_bnd[1]} ({full_bnd[2]} bytes, "
         f"{full_bnd[3]} operations)")
-    wptx = ptxas_report(_cuda.ptxas_log(), "frag_wide_kernel")
-    log(f"ptxas, frag_wide_kernel (registers, stack frame, spill stores, "
-        f"spill loads bytes): {wptx}")
-    if len(wptx) != 2:
-        raise AssertionError(f"no ptxas report of both frag_wide_kernel "
-                             f"instantiations: {wptx}")
-    for name, (_, stack, st, ld) in wptx.items():
-        if stack or st or ld:
-            raise AssertionError(f"{name}: {stack} bytes stack frame, "
-                                 f"{st} / {ld} bytes spilled")
+    wptx = check_ptxas("frag_wide_kernel", 2, "best_in type")
     opt = check_optimal(model.gx, [f.result() for f in opt_futs])
     seedless = run_seedless(model, reads, dev)
     outputs = run_outputs(graph_bp, reads, dev)
@@ -1804,6 +1812,7 @@ def main() -> int:
                                 for c in carried_cases},
               bound_ms_by_case={c["label"]: round(c["bound"][0], 6)
                                 for c in carried_cases},
+              ptxas={k: list(v) for k, v in cptx.items()},
               on_main_path=True),
         polish_entry("polish_core", "core", WARP_BANDS, 8,
                      launches_by_path={k: v["polish_core"]
@@ -1818,6 +1827,7 @@ def main() -> int:
                                        launches12["polish_core_any"]}),
         polish_entry("polish_walk_any", "walk", ANY_BANDS, 12,
                      launches=launches12["polish_walk_any"],
+                     ptxas={k: list(v) for k, v in wptx_walk.items()},
                      launches_by_path={"bench pass, polish band 12":
                                        launches12["polish_walk_any"]}),
     ]

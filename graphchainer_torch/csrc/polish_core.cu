@@ -49,15 +49,19 @@
 // and 17-31 -> 34-62): up to 64 words, the same skewed wavefront, a warp
 // per read, the lane of word a being a mod bw with no power-of-two mask,
 // and past 32 words two words a lane (polish_core_any_kernel<2>), run
-// side by side; the dump column-major, [col][word][read], the layout the
-// run-time-bw walk reads.  Steep bands take the serial fill on lane 0, as
-// in the warp entries, here the one below.  Past 64 words (an explicit
-// --polish-band above 64): one thread per read (polish_core_thread_kernel)
-// keeps no band state of its own: word w of column col starts from word
-// w + shift of column col - 1, read back from the dump where the same
-// thread wrote it one column earlier.  What bounds the warp entries:
-// the P + RW + bw steps of the wavefront, a step ~80 instructions (twice
-// that with two words a lane) of one warp alone on its scheduler; the
+// side by side; the dump read-major, [read][col][word], with the word
+// stride ws = bw rounded up to a multiple of 4 (the padding words are
+// never written), so each column starts on 16 bytes and polish_walk's warp
+// walk stages it as it stages the template entries' dump.  Steep bands
+// take the serial fill on lane 0, as in the warp entries, here the one
+// below.  Past 64 words (an explicit --polish-band above 64): one thread
+// per read (polish_core_thread_kernel) keeps no band state of its own:
+// word w of column col starts from word w + shift of column col - 1, read
+// back from the dump where the same thread wrote it one column earlier;
+// that dump is column-major, [col][word][read], so the threads' loads and
+// stores are coalesced across reads.  What bounds the warp entries: the
+// P + RW + bw steps of the wavefront, a step ~80 instructions (twice that
+// with two words a lane) of one warp alone on its scheduler; the
 // thread-per-read route: P x bw dependent word steps per read, each
 // waiting on a cached load of the word written a column before; the bytes
 // lie far below either (PERF.md).
@@ -185,22 +189,43 @@ __device__ void fill_serial(const uint32_t* __restrict__ planes,
   }
 }
 
+// Where word w of column col of read r lies in a run-time-bw dump, and
+// column col's band base: read-major with word stride ws (bw rounded up
+// to a multiple of 4) up to 64 words, column-major beyond.
+struct Layout {
+  size_t rs, cs, wsd;    // strides of read, column, word
+  size_t brs, bcs;       // strides of read, column in dbase
+  __device__ __forceinline__ size_t at(int r, int col, int w) const {
+    return r * rs + col * cs + w * wsd;
+  }
+  __device__ __forceinline__ size_t base_at(int r, int col) const {
+    return r * brs + col * bcs;
+  }
+  __device__ static Layout read_major(int P, int bw) {
+    const size_t ws = (size_t)((bw + 3) & ~3);
+    return Layout{(size_t)P * ws, ws, 1, (size_t)P, 1};
+  }
+  __device__ static Layout col_major(int R, int bw) {
+    return Layout{1, (size_t)bw * R, (size_t)R, 1, (size_t)R};
+  }
+};
+
 // One read, column by column, by one thread, with the band width a
 // run-time argument: the thread keeps no band state of its own; word w of
 // column col starts from word w + shift of column col - 1, read back from
 // the dump where the same thread wrote it one column earlier (shift: how
 // far the band's top moved, at most bw), or, below the old bottom word,
-// from the all-insertion fill (its sb + 32 per word).  The dump is
-// column-major, [col][word][read].  The dump pointers are read as well as
-// written, so they are neither const nor __restrict__: no load may take the
-// read-only path.
+// from the all-insertion fill (its sb + 32 per word).  The dump pointers
+// are read as well as written, so they are neither const nor __restrict__:
+// no load may take the read-only path.
 __device__ void fill_any_serial(const uint32_t* __restrict__ planes,
                                 const uint32_t* __restrict__ path,
                                 int rlen, int plen, int r, int R, int RW,
-                                int P, int bw, uint32_t* dvp, uint32_t* dvn,
-                                int* dsb, int* __restrict__ dbase) {
+                                int P, int bw, const Layout& L,
+                                uint32_t* dvp, uint32_t* dvn, int* dsb,
+                                int* __restrict__ dbase) {
   const Band band(rlen, plen, bw);
-  auto at = [&](int col, int w) { return ((size_t)col * bw + w) * R + r; };
+  auto at = [&](int col, int w) { return L.at(r, col, w); };
   int base = band.base(0);
   // the reference's plane window: its first row word and the words it
   // still holds (see the note above: it lags the band only at bw = 1)
@@ -240,7 +265,7 @@ __device__ void fill_any_serial(const uint32_t* __restrict__ planes,
       dvn[o] = vn;
       dsb[o] = sb;
     }
-    dbase[(size_t)col * R + r] = nb;
+    dbase[L.base_at(r, col)] = nb;
     base = nb;
   }
 }
@@ -259,7 +284,7 @@ polish_core_thread_kernel(const uint32_t* __restrict__ planes, // (4, RW, R)
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   fill_any_serial(planes, path, read_len[r], path_len[r], r, R, RW, P, bw,
-                  dvp, dvn, dsb, dbase);
+                  Layout::col_major(R, bw), dvp, dvn, dsb, dbase);
 }
 
 constexpr int RING_STEPS = 256;            // steps between ring refills
@@ -396,8 +421,8 @@ polish_core_warp_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
 // lane rather than two warps a read: the carry stays a shuffle, with no
 // barrier between warps at every step, and the two words' steps are
 // independent instructions that fill each other's latencies.  The dump is
-// written column-major, [col][word][read], the layout polish_walk_any
-// reads.
+// written read-major with word stride ws (Layout::read_major), the layout
+// polish_walk's warp walk stages.
 template <int WORDS>
 __global__ void __launch_bounds__(32)
 polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
@@ -405,10 +430,10 @@ polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
                        const int* __restrict__ read_len,      // (R,)
                        const int* __restrict__ path_len,      // (R,)
                        int R, int RW, int P, int bw,
-                       uint32_t* dvp,                         // (P, bw, R)
-                       uint32_t* dvn,                         // (P, bw, R)
-                       int* dsb,                              // (P, bw, R)
-                       int* __restrict__ dbase) {             // (P, R)
+                       uint32_t* dvp,                         // (R, P, ws)
+                       uint32_t* dvn,                         // (R, P, ws)
+                       int* dsb,                              // (R, P, ws)
+                       int* __restrict__ dbase) {             // (R, P)
   __shared__ uint8_t ring[RING];
   const int r = blockIdx.x;
   const int lane = threadIdx.x;
@@ -417,13 +442,11 @@ polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
   const Band band(rlen, plen, bw);
   if (!(band.scale <= MAX_WAVE_SCALE)) {
     if (lane == 0)
-      fill_any_serial(planes, path, rlen, plen, r, R, RW, P, bw, dvp, dvn,
-                      dsb, dbase);
+      fill_any_serial(planes, path, rlen, plen, r, R, RW, P, bw,
+                      Layout::read_major(P, bw), dvp, dvn, dsb, dbase);
     return;
   }
-  auto col_major = [&](int col, int w) {
-    return ((size_t)col * bw + w) * R + r;
-  };
+  const int ws = (bw + 3) & ~3;               // the dump's word stride
 
   // per word slot k of this lane: its absolute word a (residue lane +
   // 32k), plane words, state, and what it does at the coming step
@@ -521,11 +544,11 @@ polish_core_any_kernel(const uint32_t* __restrict__ planes,   // (4, RW, R)
           x.sb_prev = before;
           x.hout = h;
           x.fresh = false;
-          const size_t o = col_major(x.p, x.a - x.nb);
+          const size_t o = ((size_t)r * P + x.p) * ws + (x.a - x.nb);
           dvp[o] = v_p;
           dvn[o] = v_n;
           dsb[o] = v_s;
-          if (x.a == x.nb) dbase[(size_t)x.p * R + r] = x.nb;
+          if (x.a == x.nb) dbase[(size_t)r * P + x.p] = x.nb;
         }
       }
       prepare(s + 1);
@@ -583,9 +606,11 @@ extern "C" int polish_core_launch(const void* planes, const void* path,
   }
 }
 
-// Any bw >= 1; the dump is written column-major: dvp / dvn / dsb as
-// (P, bw, R), dbase as (P, R).  A warp per read up to 64 words (one word a
-// lane up to 32, two beyond), a thread per read past 64.
+// Any bw >= 1.  Up to 64 words a warp per read (one word a lane up to 32,
+// two beyond), the dump written read-major with word stride ws = bw
+// rounded up to a multiple of 4: dvp / dvn / dsb as (R, P, ws), dbase as
+// (R, P).  Past 64 a thread per read, the dump column-major: dvp / dvn /
+// dsb as (P, bw, R), dbase as (P, R).
 extern "C" int polish_core_any_launch(const void* planes, const void* path,
                                       const void* read_len,
                                       const void* path_len, int R, int RW,

@@ -17,28 +17,38 @@
 // ~100 instructions that one warp issues one after another; the bytes
 // (the dump words the walk touches, read once) lie far below (PERF.md).
 //
-// Two entries, chosen by bw alone in ops/polish_kernel.py:
-//
-// polish_walk_launch (bw 8, 16, 32; dump read-major, [read][col][word], as
-// polish_core_launch writes it): one warp per read.  The walk only moves to
-// lower columns, so the warp stages the dump ahead of it: a tile is 33
-// columns (32 plus the column to the left, so a step's cells at cc and
-// cc - 1 always share a tile) with every band word of vp / vn / sb, the
-// band base and the path mask, copied with cp.async in 16-byte pieces into
-// shared memory.  Two tiles alternate: the next lower one is in flight
-// while the current one is walked, so a step's loads are shared-memory
-// loads, and a tile holds whole columns, so a cell lies outside it only by
-// column, never by word: BIGB means the band excludes the cell, nothing
-// else.  The read's plane word of the current row and the one below it
+// Up to 64 band words, one warp per read (polish_walk_tile_kernel) over a
+// read-major dump, [read][col][word], with the word stride ws = bw
+// rounded up to a multiple of 4, as polish_core_launch and
+// polish_core_any_launch write it.  The walk only moves to lower columns,
+// so the warp stages the dump ahead of it: a tile is 33 columns (32 plus
+// the column to the left, so a step's cells at cc and cc - 1 always share
+// a tile) with every band word of vp / vn / sb, the band base and the path
+// mask, copied with cp.async in 16-byte pieces into shared memory (a
+// column is ws words, so it starts on 16 bytes whatever the width).  Two
+// tiles alternate: the next lower one is in flight while the current one
+// is walked, so a step's loads are shared-memory loads, and a tile holds
+// whole columns, so a cell lies outside it only by column, never by word:
+// BIGB means the band excludes the cell, nothing else.  A cell's three
+// loads are issued together, from clamped places, with selects for the
+// cases.  The read's plane word of the current row and the one below it
 // sit in registers.  All lanes take the same steps (broadcast loads, no
 // divergence); lane 0 writes the row, and all lanes write the padding.
+// The band width is a run-time argument (polish_walk_any_launch, every
+// width up to 64, the default ramp's 8, 16 and 32 too); the buffers are
+// laid out by a stride class of 8, 16, 32 or 64 words, so the loads keep
+// constant offsets, as they did in the template entries for 8, 16 and 32
+// that this kernel replaced (PERF.md: 1.1-1.4% slower in turns).  Both
+// buffers take 2 x 3,440 (class 8) to 2 x 25,616 bytes (class 64, past
+// the 48 KB of static shared memory, so dynamic, with the block's limit
+// raised).
 //
-// polish_walk_any_launch (any bw >= 1, the band width a run-time argument;
-// dump column-major, [col][word][read], as polish_core_any_launch writes
-// it; the wrapper takes it for every width but 8, 16 and 32): one thread
-// per read, dump cells read straight from device memory, two chained
-// loads a cell (base, then the word) at a stride of R words, coalesced
-// across the warp's reads.
+// Past 64 band words (polish_walk_any_launch; only an explicit
+// --polish-band above 64 reaches them), one thread per read
+// (polish_walk_thread_kernel) over a column-major dump, [col][word][read],
+// as the thread-per-read fill writes it: dump cells read straight from
+// device memory, two chained loads a cell (base, then the word) at a
+// stride of R words, coalesced across the warp's reads.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -50,6 +60,7 @@ constexpr int W = 32;
 constexpr int BIGB = 1 << 26;
 constexpr uint32_t ONES = 0xFFFFFFFFu;
 constexpr int OP_MATCH = 0, OP_DEL = 1, OP_INS = 2, OP_MISMATCH = 3;
+constexpr int MAX_TILE_BW = 64;   // widest band the warp walk stages
 
 __device__ __forceinline__ int floordiv32(int a) {   // floor(a / 32)
   return a >= 0 ? a / W : -((-a + W - 1) / W);
@@ -75,6 +86,7 @@ struct GlobalDump {
   const uint32_t* path;  // (P, R)
   int P, bw, R, r;
 
+  __device__ __forceinline__ int width() const { return bw; }
   __device__ __forceinline__ void seek(int) {}
   __device__ __forceinline__ int base_of(int cq) const {
     return base[(size_t)cq * R + r];
@@ -99,21 +111,27 @@ struct GlobalDump {
 };
 
 // The dump staged in shared memory by a warp, read-major, two tiles of
-// TILE + 1 columns.
+// TILE + 1 columns, the band width taken at run time.  The dump's word stride
+// `ws` is the band width rounded up to a multiple of 4, so every column
+// starts on 16 bytes and a tile is a contiguous run of 16-byte pieces.
+// A buffer holds vp, vn and sb as arrays of COLS x NS words, NS >= ws a
+// compile-time stride class (8, 16, 32, 64), a column's words at a stride
+// of ws in each, so a cell's three loads take constant offsets whatever
+// the width.
 constexpr int TILE = 32;
 
-template <int BW>
+template <int NS>
 struct TileDump {
   static constexpr int COLS = TILE + 1;
   struct __align__(16) Buf {     // cp.async moves 16-byte pieces
-    uint32_t vp[COLS * BW];
-    uint32_t vn[COLS * BW];
-    int sb[COLS * BW];
+    uint32_t vp[COLS * NS];
+    uint32_t vn[COLS * NS];
+    int sb[COLS * NS];
     int base[COLS];
     uint32_t path[COLS];
   };
   Buf* buf;              // [2] in shared memory, 16-byte aligned
-  const uint32_t* gvp;   // this read's (P, bw) planes of the dump
+  const uint32_t* gvp;   // this read's (P, ws) planes of the dump
   const uint32_t* gvn;
   const int* gsb;
   const int* gbase;      // this read's (P,)
@@ -121,6 +139,9 @@ struct TileDump {
   int P, bw, R, lane;
   int cur, tile, lo;     // buffer, tile index and first column walked now
   int lo_next;
+
+  __device__ __forceinline__ int width() const { return bw; }
+  __device__ __forceinline__ int ws() const { return (bw + 3) & ~3; }
 
   __device__ __forceinline__ static int first_col(int t) {
     return max(TILE * t - 1, 0);
@@ -132,8 +153,8 @@ struct TileDump {
     const int c0 = first_col(t);
     const int ncol = min(TILE * t + TILE - 1, P - 1) - c0 + 1;
     Buf& d = buf[b];
-    const size_t g = (size_t)c0 * BW;
-    for (int i = lane; i < ncol * BW / 4; i += 32) {
+    const size_t g = (size_t)c0 * ws();
+    for (int i = lane; i < ncol * ws() / 4; i += 32) {
       __pipeline_memcpy_async(&d.vp[4 * i], gvp + g + 4 * i, 16);
       __pipeline_memcpy_async(&d.vn[4 * i], gvn + g + 4 * i, 16);
       __pipeline_memcpy_async(&d.sb[4 * i], gsb + g + 4 * i, 16);
@@ -183,7 +204,7 @@ struct TileDump {
   }
   __device__ __forceinline__ int word(int cq, int w, int rr) const {
     const Buf& d = buf[cur];
-    const int o = (cq - lo) * BW + w;
+    const int o = (cq - lo) * ws() + w;
     return word_score(d.sb[o], d.vp[o], d.vn[o], rr);
   }
   // DP cell (rr, cc), BIGB where the band of its column excludes it.
@@ -195,9 +216,9 @@ struct TileDump {
     const int j = min(max(min(cc, P - 1) - lo, 0), COLS - 1);
     const int rc = max(rr, 0);
     const int w = (rc >> 5) - d.base[j];
-    const int o = j * BW + min(max(w, 0), BW - 1);
+    const int o = j * ws() + min(max(w, 0), width() - 1);
     int v = word_score(d.sb[o], d.vp[o], d.vn[o], rc);
-    v = (w < 0 || w >= BW) ? BIGB : v;
+    v = (w < 0 || w >= width()) ? BIGB : v;
     v = rr < 0 ? cc + 1 : v;
     v = cc < 0 ? rr + 1 : v;
     return (rr < 0 && cc < 0) ? 0 : v;
@@ -242,7 +263,7 @@ template <class Dump>
 __device__ void walk(Dump& d, ReadPlanes& rp, int rl, int pl, int RW,
                      int max_steps, int ops_cap, long long* __restrict__ row,
                      bool writer, int lane, int lanes) {
-  const int P = d.P, bw = d.bw;
+  const int P = d.P, bw = d.width();
   const int n_words = ops_cap / 16;
 
   // global score: row rl - 1 at column pl - 1, word clamped into the band
@@ -313,7 +334,7 @@ __device__ void walk(Dump& d, ReadPlanes& rp, int rl, int pl, int RW,
 }
 
 __global__ void __launch_bounds__(64)
-polish_walk_any_kernel(GlobalDump d,
+polish_walk_thread_kernel(GlobalDump d,
                           const uint32_t* __restrict__ planes,  // (4, RW, R)
                           const int* __restrict__ read_len,
                           const int* __restrict__ path_len, int RW,
@@ -327,9 +348,11 @@ polish_walk_any_kernel(GlobalDump d,
        out + (size_t)r * (3 + ops_cap / 16), true, 0, 1);
 }
 
-template <int BW>
+// A warp per read over a read-major dump of word stride ws <= NS, its two
+// tile buffers in shared memory.
+template <int NS>
 __global__ void __launch_bounds__(32)
-polish_walk_warp_kernel(const uint32_t* __restrict__ dvp,     // (R, P, BW)
+polish_walk_tile_kernel(const uint32_t* __restrict__ dvp,     // (R, P, ws)
                         const uint32_t* __restrict__ dvn,
                         const int* __restrict__ dsb,
                         const int* __restrict__ dbase,        // (R, P)
@@ -337,14 +360,20 @@ polish_walk_warp_kernel(const uint32_t* __restrict__ dvp,     // (R, P, BW)
                         const uint32_t* __restrict__ path,    // (P, R)
                         const int* __restrict__ read_len,
                         const int* __restrict__ path_len, int R, int RW,
-                        int P, int max_steps, int ops_cap,
+                        int P, int bw, int max_steps, int ops_cap,
                         long long* __restrict__ out) {  // (R, 3 + cap / 16)
-  __shared__ typename TileDump<BW>::Buf buf[2];
+  // static shared memory where both buffers fit in 48 KB, else dynamic
+  using Buf = typename TileDump<NS>::Buf;
+  constexpr bool STATIC = 2 * sizeof(Buf) <= 48 * 1024;
+  __shared__ __align__(16) unsigned char fixed[STATIC ? 2 * sizeof(Buf) : 16];
+  extern __shared__ __align__(16) unsigned char dynamic[];
+  Buf* const tiles = (Buf*)(STATIC ? fixed : dynamic);
   const int r = blockIdx.x;
   const int lane = threadIdx.x;
+  const int ws = (bw + 3) & ~3;
   const size_t rp_off = (size_t)r * P;
-  TileDump<BW> d{buf, dvp + rp_off * BW, dvn + rp_off * BW,
-                 dsb + rp_off * BW, dbase + rp_off, path + r, P, BW, R,
+  TileDump<NS> d{tiles, dvp + rp_off * ws, dvn + rp_off * ws,
+                 dsb + rp_off * ws, dbase + rp_off, path + r, P, bw, R,
                  lane, 0, 0, 0, 0};
   const int rl = read_len[r];
   const int pl = path_len[r];
@@ -354,18 +383,33 @@ polish_walk_warp_kernel(const uint32_t* __restrict__ dvp,     // (R, P, BW)
        out + (size_t)r * (3 + ops_cap / 16), lane == 0, lane, 32);
 }
 
-template <int BW>
-cudaError_t launch_warp(const void* dvp, const void* dvn, const void* dsb,
-                        const void* dbase, const void* planes,
-                        const void* path, const void* read_len,
-                        const void* path_len, int R, int RW, int P,
-                        int max_steps, int ops_cap, void* out,
-                        cudaStream_t stream) {
-  polish_walk_warp_kernel<BW><<<R, 32, 0, stream>>>(
-      (const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
-      (const int*)dbase, (const uint32_t*)planes, (const uint32_t*)path,
-      (const int*)read_len, (const int*)path_len, R, RW, P, max_steps,
-      ops_cap, (long long*)out);
+struct WalkArgs {
+  const uint32_t* dvp;
+  const uint32_t* dvn;
+  const int* dsb;
+  const int* dbase;
+  const uint32_t* planes;
+  const uint32_t* path;
+  const int* read_len;
+  const int* path_len;
+  int R, RW, P, bw, max_steps, ops_cap;
+  long long* out;
+  cudaStream_t stream;
+};
+
+template <int NS>
+cudaError_t launch_tile(const WalkArgs& a) {
+  const int size = 2 * (int)sizeof(typename TileDump<NS>::Buf);
+  const int bytes = size <= 48 * 1024 ? 0 : size;
+  if (bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        polish_walk_tile_kernel<NS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  polish_walk_tile_kernel<NS><<<a.R, 32, bytes, a.stream>>>(
+      a.dvp, a.dvn, a.dsb, a.dbase, a.planes, a.path, a.read_len,
+      a.path_len, a.R, a.RW, a.P, a.bw, a.max_steps, a.ops_cap, a.out);
   return cudaGetLastError();
 }
 
@@ -375,31 +419,10 @@ bool bad_sizes(int P, int bw, int ops_cap) {
 
 }  // namespace
 
-// Warp per read over a read-major dump: dvp / dvn / dsb (R, P, bw), dbase
-// (R, P).
-extern "C" int polish_walk_launch(const void* dvp, const void* dvn,
-                                  const void* dsb, const void* dbase,
-                                  const void* planes, const void* path,
-                                  const void* read_len, const void* path_len,
-                                  int R, int RW, int P, int bw, int max_steps,
-                                  int ops_cap, void* out, void* stream) {
-  if (R <= 0) return 0;
-  if (bad_sizes(P, bw, ops_cap)) return (int)cudaErrorInvalidValue;
-  auto go = [&](auto launcher) {
-    return (int)launcher(dvp, dvn, dsb, dbase, planes, path, read_len,
-                         path_len, R, RW, P, max_steps, ops_cap, out,
-                         (cudaStream_t)stream);
-  };
-  switch (bw) {
-    case 8: return go(launch_warp<8>);
-    case 16: return go(launch_warp<16>);
-    case 32: return go(launch_warp<32>);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Thread per read over a column-major dump, any bw >= 1: dvp / dvn / dsb
-// (P, bw, R), dbase (P, R).
+// Any bw >= 1.  Up to MAX_TILE_BW words a warp per read over a read-major
+// dump of word stride ws = bw rounded up to a multiple of 4: dvp / dvn /
+// dsb (R, P, ws), dbase (R, P).  Past it a thread per read over a
+// column-major dump: dvp / dvn / dsb (P, bw, R), dbase (P, R).
 extern "C" int polish_walk_any_launch(const void* dvp, const void* dvn,
                                       const void* dsb, const void* dbase,
                                       const void* planes, const void* path,
@@ -409,11 +432,23 @@ extern "C" int polish_walk_any_launch(const void* dvp, const void* dvn,
                                       int ops_cap, void* out, void* stream) {
   if (R <= 0) return 0;
   if (bad_sizes(P, bw, ops_cap)) return (int)cudaErrorInvalidValue;
+  if (bw <= MAX_TILE_BW) {
+    const WalkArgs a{(const uint32_t*)dvp, (const uint32_t*)dvn,
+                     (const int*)dsb, (const int*)dbase,
+                     (const uint32_t*)planes, (const uint32_t*)path,
+                     (const int*)read_len, (const int*)path_len, R, RW, P,
+                     bw, max_steps, ops_cap, (long long*)out,
+                     (cudaStream_t)stream};
+    return (int)(bw <= 8    ? launch_tile<8>(a)
+                 : bw <= 16 ? launch_tile<16>(a)
+                 : bw <= 32 ? launch_tile<32>(a)
+                            : launch_tile<64>(a));
+  }
   GlobalDump d{(const uint32_t*)dvp, (const uint32_t*)dvn, (const int*)dsb,
                (const int*)dbase, (const uint32_t*)path, P, bw, R, 0};
   const int threads = 32;
   const int blocks = (R + threads - 1) / threads;
-  polish_walk_any_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  polish_walk_thread_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       d, (const uint32_t*)planes, (const int*)read_len,
       (const int*)path_len, RW, max_steps, ops_cap, (long long*)out);
   return (int)cudaGetLastError();

@@ -127,9 +127,8 @@ def bind(so: str) -> ctypes.CDLL:
     for fn in (L.polish_core_launch, L.polish_core_any_launch):
         fn.restype = I
         fn.argtypes = [P] * 4 + [I] * 4 + [P] * 4 + [P]
-    for fn in (L.polish_walk_launch, L.polish_walk_any_launch):
-        fn.restype = I
-        fn.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
+    L.polish_walk_any_launch.restype = I
+    L.polish_walk_any_launch.argtypes = [P] * 8 + [I] * 6 + [P] + [P]
     L.gct_error_string.restype = ctypes.c_char_p
     L.gct_error_string.argtypes = [I]
     return L

@@ -10,20 +10,27 @@ that dump into the packed rows of linear_align._polish_walk_t.  Each runs
 its plain torch version on a CPU tensor and launches its kernel on a CUDA
 tensor.
 
-Each kernel has two entries, and the band width alone decides which one
-a call takes (entry_for): the template warp-per-read entries are built for
-bw 8, 16 and 32, the widths of the default polish band ramp; every other
+The fill has two entries, and the band width alone decides which one a
+call takes (entry_for): the template warp-per-read entry is built for bw
+8, 16 and 32, the widths of the default polish band ramp; every other
 width (bw >= 1: a --polish-band start of 3 ramps 3 -> 6 -> 12 -> 24 -> 48)
-takes the run-time-bw entries, which take the band width as a run-time
-argument.  The run-time fill's launcher picks its route from the width:
-a warp per read up to 64 band words (one word a lane up to 32, two
-beyond), a thread per read past 64; the run-time walk is a thread per
-read.  The template entries keep the dump read-major in memory,
-(R, P, bw) and (R, P), and the run-time entries column-major, (P, bw, R)
-and (P, R); polish_core returns (P, bw, R) / (P, R) views either way,
-equal element for element, and polish_walk copies a dump that does not
-lie the way its entry reads it (never on the pipeline's path: each fill's
-dump goes to the walk of the same entry).
+takes the run-time-bw entry, which takes the band width as a run-time
+argument.  The walk has one entry for every width.  The run-time entries'
+launchers pick their route from the width: a warp per read up to 64 band
+words (the fill one word a lane up to 32, two beyond; the walk staging
+the dump in shared memory), a thread per read past 64.  The walk's
+launches count as "polish_walk" at the default ramp's widths and as
+"polish_walk_any" at every other width.
+
+The width also decides the dump's memory order, in one place
+(read_major, word_stride): up to 64 words, whatever the fill entry, the
+dump is read-major, (R, P, ws) and (R, P), with the word stride ws the
+band width rounded up to a multiple of 4 (so each column starts on 16
+bytes; the padding words are never read); past 64 it is column-major,
+(P, bw, R) and (P, R).  polish_core returns (P, bw, R) / (P, R) views
+either way, equal element for element, and polish_walk copies a dump
+that does not lie the way the walk reads it (never on the pipeline's
+path: each fill's dump goes to the walk at the same width).
 """
 from __future__ import annotations
 
@@ -33,15 +40,28 @@ from graphchainer_torch.ops import _cuda
 from graphchainer_torch.ops import linear_align as _la
 from graphchainer_torch.ops.myers import to_i32_bits
 
-WARP_BAND_WORDS = (8, 16, 32)           # band widths with a warp per read
+WARP_BAND_WORDS = (8, 16, 32)           # band widths of the template fill
+MAX_TILE_BAND_WORDS = 64                # widest read-major (warp) route
 
 
 def entry_for(bw: int) -> str:
-    """The kernel entry a band width takes: "warp" (the template warp
-    entries) or "any" (the run-time-bw entries, whose launch refuses a
-    width below 1; the run-time fill's launcher runs a warp per read up
-    to 64 words and a thread per read beyond)."""
+    """The fill entry a band width takes: "warp" (the template warp
+    entry) or "any" (the run-time-bw entry, whose launch refuses a width
+    below 1; its launcher runs a warp per read up to 64 words and a
+    thread per read beyond).  The walk's launches are counted by the
+    same split."""
     return "warp" if bw in WARP_BAND_WORDS else "any"
+
+
+def read_major(bw: int) -> bool:
+    """Whether a dump of this band width is stored read-major (R, P, ws)
+    (up to 64 words) or column-major (P, bw, R) (beyond)."""
+    return bw <= MAX_TILE_BAND_WORDS
+
+
+def word_stride(bw: int) -> int:
+    """The word stride of a read-major dump: bw rounded up to 4."""
+    return -(-bw // 4) * 4
 
 
 def polish_core(planes_t, path_t, read_len, path_len, bw: int):
@@ -66,11 +86,12 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
     chk("path_len", path_len, (R,))
     dev = planes_t.device
     warp = entry == "warp"
-    word_shape = (R, P, bw) if warp else (P, bw, R)
+    rm = read_major(bw)
+    word_shape = (R, P, word_stride(bw)) if rm else (P, bw, R)
     dvp = torch.empty(word_shape, dtype=torch.int32, device=dev)
     dvn = torch.empty(word_shape, dtype=torch.int32, device=dev)
     dsb = torch.empty(word_shape, dtype=torch.int32, device=dev)
-    dbase = torch.empty((R, P) if warp else (P, R), dtype=torch.int32,
+    dbase = torch.empty((R, P) if rm else (P, R), dtype=torch.int32,
                         device=dev)
     if R and P:
         L = _cuda.lib()
@@ -83,9 +104,9 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
         name = "polish_core" if warp else "polish_core_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)
-    if warp:
-        return (dvp.permute(1, 2, 0), dvn.permute(1, 2, 0),
-                dsb.permute(1, 2, 0), dbase.permute(1, 0))
+    if rm:
+        return tuple(x[..., :bw].permute(1, 2, 0) for x in (dvp, dvn, dsb)) \
+            + (dbase.permute(1, 0),)
     return dvp, dvn, dsb, dbase
 
 
@@ -104,13 +125,23 @@ def polish_walk(dvp, dvn, dsb, dbase, planes_t, path_t, read_len, path_len,
                             max_steps, ops_cap)
 
 
-def _stored(t, warp: bool):
-    """A (P, bw, R) or (P, R) dump tensor as its entry reads it from
-    memory: read-major for the warp entry, as it is for the run-time one.
-    No copy where polish_core's matching entry wrote it."""
-    if warp:
-        t = t.permute(2, 0, 1) if t.dim() == 3 else t.permute(1, 0)
-    return t.contiguous()
+def _stored(t, bw: int):
+    """A (P, bw, R) or (P, R) dump tensor as the walk reads it from memory
+    at this width (read_major): a contiguous (R, P, ws) / (R, P) tensor, or
+    (P, bw, R) / (P, R).  No copy where polish_core wrote it."""
+    if not read_major(bw):
+        return t.contiguous()
+    if t.dim() == 2:
+        return t.permute(1, 0).contiguous()
+    P, _, R = t.shape
+    ws = word_stride(bw)
+    need = (t.storage_offset() + R * P * ws) * t.element_size()
+    if (t.stride() == (ws, 1, P * ws) and t.data_ptr() % 16 == 0
+            and t.untyped_storage().nbytes() >= need):
+        return t.as_strided((R, P, ws), (P * ws, ws, 1))
+    out = t.new_zeros((R, P, ws))
+    out[..., :bw] = t.permute(2, 0, 1)
+    return out
 
 
 def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
@@ -126,7 +157,6 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
                          "of 16")
     P, _, R = dvp.shape
     RW = planes_t.shape[1]
-    warp = entry == "warp"
     chk = _cuda.require_cuda
     for name, t in (("dump_vp", dvp), ("dump_vn", dvn), ("dump_sb", dsb)):
         if tuple(t.shape) != (P, bw, R):
@@ -135,7 +165,7 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
     if tuple(dbase.shape) != (P, R):
         raise ValueError(f"dump_base: expected shape {(P, R)}, got "
                          f"{tuple(dbase.shape)}")
-    dvp, dvn, dsb, dbase = (_stored(t, warp) for t in (dvp, dvn, dsb, dbase))
+    dvp, dvn, dsb, dbase = (_stored(t, bw) for t in (dvp, dvn, dsb, dbase))
     for name, t in (("dump_vp", dvp), ("dump_vn", dvn), ("dump_sb", dsb),
                     ("dump_base", dbase)):
         chk(name, t)
@@ -146,14 +176,12 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
     out = torch.empty((R, 3 + ops_cap // 16), dtype=torch.int64,
                       device=dvp.device)
     if R:
-        L = _cuda.lib()
-        launch = L.polish_walk_launch if warp else L.polish_walk_any_launch
-        rc = launch(
+        rc = _cuda.lib().polish_walk_any_launch(
             dvp.data_ptr(), dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
             planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
             path_len.data_ptr(), R, RW, P, bw, max_steps, ops_cap,
             out.data_ptr(), _cuda.stream_ptr(dvp))
-        name = "polish_walk" if warp else "polish_walk_any"
+        name = "polish_walk" if entry == "warp" else "polish_walk_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)
     return out

@@ -1,4 +1,5 @@
-"""The word tricks of csrc/frag_wide.cu's merges, in torch, for the tests.
+"""The word tricks of csrc/frag_wide.cu's merges and of frag_core.cu's
+carried entry, in torch, for the tests.
 
 The CUDA kernel merges Myers words (vp, vn and the score at the boundary
 row above the word; row r scores the boundary plus the +1 bits minus the
@@ -18,8 +19,22 @@ kernel's earlier loop and the plain versions compute:
   popcounts for the first row where the word comes within one of
   fbase + r.
 
-No route of the port calls them; the kernel is held to the plain versions
-on the card.
+And the carried entry's (csrc/frag_core.cu, frag_carried_kernel), a lane
+a row:
+
+- `merge_words_lanes`: column 0's merge of any number of candidates, each
+  row score from two masked popcounts, the min over candidates, repacked
+  as the ballots of the rows where the min moves by +1 / -1; held to the
+  plain version's 33-row merge (frag_align._MergeAcc).
+- `x_scan_lanes`: the best X cell of an end word, the max over the rows'
+  X and the first row at it; held to the row loop (`x_scan_rows`).
+- `split_columns`: the columns below a slot's length (the chain the next
+  level waits on) and its tail (the columns past it, which feed only the
+  state out), each entered by its own part of the slice before's bits;
+  held to all 31 columns run at once (`whole_columns`).
+
+No route of the port calls them; the kernels are held to the plain
+versions on the card.
 """
 from __future__ import annotations
 
@@ -150,3 +165,104 @@ def merge_free_start(vp, vn, wb, eq, fbase, hin: int):
     sb = torch.where(p1 == W, fbase + W - (eq != 0).to(torch.int64),
                      wb + popcount32(pa) - popcount32(na))
     return mvp, mvn, sb, mb
+
+
+BIG = 1 << 28
+INT_MIN = -(1 << 31)
+_LANES = torch.arange(W, dtype=torch.int64)
+
+
+def merge_words_lanes(words):
+    """The merge of candidate words [(vp, vn, sb), ...] (int64 tensors of
+    one shape), as the carried kernel's main warp runs it with lane r
+    holding row r: the first word as it is when it is alone, else the min
+    of every word's row scores (from BIG), repacked.  Returns (vp, vn,
+    sb)."""
+    if len(words) == 1:
+        return words[0]
+    low = _low_rows(_LANES)                            # (32,) rows 0..r
+    bmin = rmin = None
+    for vp, vn, sb in words:
+        bef = sb - popcount32(vp) + popcount32(vn)
+        row = (bef[..., None] + popcount32(vp[..., None] & low)
+               - popcount32(vn[..., None] & low))
+        bmin = (torch.minimum(bef, torch.full_like(bef, BIG)) if bmin is None
+                else torch.minimum(bmin, bef))
+        rmin = (torch.minimum(row, torch.full_like(row, BIG)) if rmin is None
+                else torch.minimum(rmin, row))
+    up = torch.cat([bmin[..., None], rmin[..., :-1]], dim=-1)  # shfl_up
+    d = rmin - up
+    vp = ((d == 1).to(torch.int64) << _LANES).sum(-1)          # ballots
+    vn = ((d == -1).to(torch.int64) << _LANES).sum(-1)
+    return vp, vn, rmin[..., W - 1]
+
+
+def x_scan_rows(evp, evn, esb, s: int, nr):
+    """The X cell of an end word, row by row (the reference's loop): X =
+    s 32 + r + 1 - 5 score(r) over rows r < nr, the first strictly best
+    from -BIG.  Returns (X, row): (-BIG, 0) when no row passes -BIG."""
+    sv = torch.full_like(esb, -BIG)
+    srow = torch.zeros_like(esb)
+    sr = esb - popcount32(evp) + popcount32(evn)
+    for r in range(W):
+        sr = sr + ((evp >> r) & 1) - ((evn >> r) & 1)
+        x = s * W + r + 1 - 5 * sr
+        hit = (r < nr) & (x > sv)
+        sv = torch.where(hit, x, sv)
+        srow = torch.where(hit, r, srow)
+    return sv, srow
+
+
+def x_scan_lanes(evp, evn, esb, s: int, nr):
+    """x_scan_rows a lane a row: every row's X from two masked popcounts
+    (rows past nr INT_MIN), its max (__reduce_max_sync) and the first row
+    at it (the ballot's lowest bit).  Returns (max, row); the kernel
+    counts a max only above -BIG."""
+    low = _low_rows(_LANES)
+    bef = esb - popcount32(evp) + popcount32(evn)
+    sr = (bef[..., None] + popcount32(evp[..., None] & low)
+          - popcount32(evn[..., None] & low))
+    nr = torch.as_tensor(nr)
+    nr = nr[..., None] if nr.dim() else nr
+    x = torch.where(_LANES < nr, s * W + _LANES + 1 - 5 * sr, INT_MIN)
+    m = x.max(dim=-1).values
+    row = (x == m[..., None]).to(torch.int64).argmax(dim=-1)
+    return m, row
+
+
+def _columns(vp, vn, eq_cols, hp, hn, lo, hi):
+    """Columns lo .. hi - 1 (lo, hi tensors) of the recurrence from the
+    word (vp, vn), each entered by bit c of hp / hn; the bottom-row
+    moves of those columns as bits, and the word after them."""
+    tp = torch.zeros_like(vp)
+    tn = torch.zeros_like(vp)
+    sb = torch.zeros_like(vp)
+    for c in range(1, W):
+        hin = ((hp >> c) & 1) - ((hn >> c) & 1)
+        nvp, nvn, _, hout = advance_word(vp, vn, sb, eq_cols[c], hin)
+        run = (c >= lo) & (c < hi)
+        vp = torch.where(run, nvp, vp)
+        vn = torch.where(run, nvn, vn)
+        tp = tp | ((run & (hout > 0)).to(torch.int64) << c)
+        tn = tn | ((run & (hout < 0)).to(torch.int64) << c)
+    return vp, vn, tp, tn
+
+
+def whole_columns(vp, vn, eq_cols, hp, hn):
+    """All 31 columns of a slice from its column-0 word, entered by the
+    slice before's bits: the bottom-row moves (hp, hn) of the state out."""
+    one = torch.ones_like(vp)
+    return _columns(vp, vn, eq_cols, hp, hn, one, W * one)[2:]
+
+
+def split_columns(vp, vn, eq_cols, slen, hp, hn, thp, thn):
+    """The same slice split as the carried kernel runs it: the main warp's
+    columns 1 .. min(slen, 32) - 1 entered by the main bits (hp, hn), the
+    aux warp's tail max(slen, 1) .. 31 from the word after them, entered
+    by the tail bits (thp, thn).  Returns the new main and tail bits."""
+    one = torch.ones_like(vp)
+    top = torch.clamp(slen, max=W)
+    mvp, mvn, mp, mn = _columns(vp, vn, eq_cols, hp, hn, one, top)
+    _, _, tp, tn = _columns(mvp, mvn, eq_cols, thp, thn,
+                            torch.clamp(slen, min=1), W * one)
+    return mp, mn, tp, tn

@@ -49,32 +49,48 @@ def test_cpu_tensors_run_plain_versions():
 @pytest.mark.parametrize("bw", [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64,
                                 100])
 def test_polish_entry_is_chosen_by_band_width(bw):
-    """The warp-per-read entries take the default band ramp's widths, the
-    run-time-bw entries every other width, for any --polish-band start
-    (their fill a warp per read up to 64 words, a thread per read past
-    them: test_polish_kernel_matches_plain at 100)."""
+    """The template warp-per-read fill takes the default band ramp's
+    widths, the run-time-bw fill every other width, for any --polish-band
+    start (a warp per read up to 64 words, a thread per read past them:
+    test_polish_kernel_matches_plain at 100); the walk, one entry for
+    every width, counts its launches by the same split."""
     want = "warp" if bw in (8, 16, 32) else "any"
     assert polish_kernel.entry_for(bw) == want
 
 
 def test_polish_dump_layouts():
-    """A dump reaches its entry in the memory order that entry reads: a
-    (P, bw, R) view of read-major storage goes to the warp entry without
-    a copy, and is copied column-major for the run-time-bw entry."""
-    R, P, bw = 3, 5, 8
-    store = torch.arange(R * P * bw, dtype=torch.int32).reshape(R, P, bw)
+    """A dump reaches the walk in the memory order the walk reads at its
+    width, which one rule (read_major, word_stride) decides: up to 64
+    words read-major with the word stride bw rounded up to 4, past 64
+    column-major.  A (P, bw, R) view of polish_core's read-major storage
+    (padded or not) goes to the walk without a copy; a dump that lies the
+    other way is copied, equal element for element."""
+    assert [polish_kernel.word_stride(b) for b in (1, 3, 4, 5, 8, 33, 64)] \
+        == [4, 4, 4, 8, 8, 36, 64]
+    assert polish_kernel.read_major(64) and not polish_kernel.read_major(65)
+    R, P = 3, 5
+    for bw in (8, 3, 33):
+        ws = polish_kernel.word_stride(bw)
+        store = torch.arange(R * P * ws, dtype=torch.int32).reshape(R, P, ws)
+        view = store[..., :bw].permute(1, 2, 0)
+        assert tuple(view.shape) == (P, bw, R)
+        got = polish_kernel._stored(view, bw)
+        assert got.data_ptr() == store.data_ptr() and got.is_contiguous()
+        assert tuple(got.shape) == (R, P, ws)
+        cols = view.contiguous()
+        back = polish_kernel._stored(cols, bw)
+        assert tuple(back.shape) == (R, P, ws) and back.is_contiguous()
+        assert torch.equal(back[..., :bw], store[..., :bw])
+    store = torch.arange(R * P * 100, dtype=torch.int32).reshape(R, P, 100)
     view = store.permute(1, 2, 0)
-    assert tuple(view.shape) == (P, bw, R)
-    warp = polish_kernel._stored(view, True)
-    assert warp.data_ptr() == store.data_ptr() and warp.is_contiguous()
-    cols = polish_kernel._stored(view, False)
+    cols = polish_kernel._stored(view, 100)
     assert cols.is_contiguous() and torch.equal(cols, view)
-    assert cols.data_ptr() != store.data_ptr()
-    back = polish_kernel._stored(cols, True)
-    assert tuple(back.shape) == (R, P, bw) and torch.equal(back, store)
+    assert polish_kernel._stored(cols, 100).data_ptr() == cols.data_ptr()
     base = torch.arange(R * P, dtype=torch.int32).reshape(R, P)
-    assert polish_kernel._stored(base.permute(1, 0), True).data_ptr() \
+    assert polish_kernel._stored(base.permute(1, 0), 12).data_ptr() \
         == base.data_ptr()
+    assert torch.equal(polish_kernel._stored(base.permute(1, 0), 100),
+                       base.t())
 
 
 def test_kernel_calls_refuse_cpu_tensors():
@@ -289,9 +305,9 @@ def test_frag_kernel_matches_plain(cuda_device, case):
                        ref[3].permute(2, 1, 0).cpu())
 
 
-_GPU_BANDS = [1, 2, 3, 4, 5, 8, 12, 16, 32, 33, 48, 64, 100]   # both
-# entries; 3, 12, 48 ramp from a start of 3 or 12; 33 and 64 take two
-# words a lane, 100 the run-time fill's thread per read
+_GPU_BANDS = [1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, 33, 48, 64, 100]
+# both entries; 3, 6, 12, 24, 48 ramp from a start of 3 or 12; 33 and 64
+# take two words a lane, 100 the run-time entries' thread per read
 
 
 @pytest.mark.gpu
@@ -333,37 +349,87 @@ def test_polish_kernel_steep_bands_match_plain(cuda_device, bw):
         assert torch.equal(g.cpu(), r.cpu()), i
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("bw", _GPU_BANDS)
-def test_polish_walk_matches_plain(cuda_device, bw):
-    planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
-                                for a in mixed_batch())
-    dump = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
-    i32 = (tuple(to_i32_bits(d) for d in dump)
-           + (to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int()))
-    for max_steps, cap in ((1024, 512), (1024, 256), (1024, 0)):
+def _read_major(dump, bw):
+    """A (P, bw, R) / (P, R) dump's values as views of read-major storage
+    with the word stride word_stride(bw), as polish_core returns them."""
+    ws = polish_kernel.word_stride(bw)
+    out = []
+    for t in dump[:3]:
+        P, _, R = t.shape
+        store = torch.zeros((R, P, ws), dtype=t.dtype, device=t.device)
+        store[..., :bw] = t.permute(2, 0, 1)
+        out.append(store[..., :bw].permute(1, 2, 0))
+    return out + [dump[3].t().contiguous().t()]
+
+
+def _check_walk(dump, planes_t, path_t, rl, pl, bw, caps):
+    """The walk against _polish_walk_t on one dump, handed to the kernel
+    column-major and read-major (the wrapper copies the one that does not
+    lie the way the walk reads it at this width)."""
+    i32 = (to_i32_bits(planes_t), to_i32_bits(path_t), rl.int(), pl.int())
+    words = [to_i32_bits(d) for d in dump]
+    for max_steps, cap in caps:
         ref = linear_align._polish_walk_t(*dump, planes_t, path_t, rl, pl,
                                           bw, max_steps, cap)
         got = polish_kernel.polish_walk(*dump, planes_t, path_t, rl, pl, bw,
                                         max_steps, cap)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ref.cpu())
-        got = polish_kernel.polish_walk_cuda(*i32, bw, max_steps, cap)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), ref.cpu())
+        for handed in (words, _read_major(words, bw)):
+            got = polish_kernel.polish_walk_cuda(*handed, *i32, bw,
+                                                 max_steps, cap)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ref.cpu())
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["carried", "carried-wide", "fresh-state"])
+@pytest.mark.parametrize("bw", _GPU_BANDS)
+def test_polish_walk_matches_plain(cuda_device, bw):
+    planes_t, path_t, rl, pl = (t64(a).to(cuda_device)
+                                for a in mixed_batch())
+    dump = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
+    _check_walk(dump, planes_t, path_t, rl, pl, bw,
+                ((1024, 512), (1024, 256), (1024, 0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bw", _GPU_BANDS)
+def test_polish_walk_steep_bands_match_plain(cuda_device, bw):
+    """The walk on workload.polish_hard_pairs (reads 20 and 40 times their
+    paths' length, long indels along the band's edges, empty reads and
+    paths, ordinary reads), over the plain fill's dump, under the
+    polish's ops_cap and one that long walks overflow."""
+    from graphchainer_torch.align.polish import _ops_cap
+    from graphchainer_torch.workload import polish_hard_pairs
+    pairs = [(r, p) for _, r, p in polish_hard_pairs(5, 4, 1500)]
+    planes_t, path_t, rl, pl = (t64(a).to(cuda_device) for a in
+                                pack_polish_pairs(pairs, 2048, 2048))
+    dump = linear_align._polish_core_t(planes_t, path_t, rl, pl, bw)
+    _check_walk(dump, planes_t, path_t, rl, pl, bw,
+                ((4096, _ops_cap(2048, 2048, bw)), (4096, 1600)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["carried", "carried-wide", "fresh-state",
+                                  "carried-B96", "xcells-only",
+                                  "state-only"])
 def test_frag_kernel_carried_entry_matches_plain(cuda_device, case):
     """The carried entry against its plain version on the card: a random
-    carried state and per-slot trims on the hard batch (B=8 / S=3, and
-    B=48 / S=2 at GA mode's width), and a fresh window with the state and
-    X-cell outputs; every output exact."""
+    carried state and per-slot trims on the hard batch (B=8 / S=3, B=48 /
+    S=2 at GA mode's width, and B=96 / max_in=12 on 45 fragments), with
+    slots of length 0 (a whole trim), 1, 32 and longer; a fresh window
+    with the state and X-cell outputs; and each extra output alone (no
+    tail columns, or no X scan); every output exact."""
     if case == "carried-wide":
         args, kw = carried_case(4, F=48, B=48, max_in=4, S=2)
+    elif case == "carried-B96":
+        args, kw = carried_case(5, F=45, B=96, max_in=12, S=2)
     else:
         args, kw = carried_case()
+    if case == "xcells-only":
+        kw = dict(kw, want_state=False)
+    if case == "state-only":
+        kw = dict(kw, want_xcells=False)
     if case == "fresh-state":
         args = args[:5] + (torch.zeros(args[2].shape[0],
                                        dtype=torch.int32),) + args[6:]
@@ -374,8 +440,11 @@ def test_frag_kernel_carried_entry_matches_plain(cuda_device, case):
     ref = frag_kernel.frag_core(*args, **kw)
     torch.cuda.synchronize()
     for name in frag_align.FragResult._fields:
-        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
-            name
+        want = getattr(ref, name)
+        if want is None:
+            assert getattr(got, name) is None, name
+            continue
+        assert torch.equal(getattr(got, name).cpu(), want), name
 
 
 @pytest.mark.gpu
@@ -530,6 +599,27 @@ ptxas info    : Used 96 registers, used 1 barriers
     assert chip_smoke.ptxas_report(log, "frag_wide_kernel") == {
         "frag_wide_kernel<int8_t>": (90, 0, 0, 0),
         "frag_wide_kernel<int16_t>": (96, 8, 0, 0)}
+
+
+def test_ptxas_report_reads_plain_kernels():
+    """The same reading for a kernel that is no template (frag_carried_
+    kernel), keyed by its name, beside a template kernel at argument 0
+    (polish_walk_tile_kernel<0>, the run-time band width)."""
+    import chip_smoke
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119frag_carried_kernelEPK4int4PKiS4_PKaS6_S4_S2_S4_iiiiiPiS7_S7_PaNS_3ExtE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119frag_carried_kernelEPK4int4PKiS4_PKaS6_S4_S2_S4_iiiiiPiS7_S7_PaNS_3ExtE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123polish_walk_tile_kernelILi0EEEvPKjS2_PKiS4_S2_S2_S4_S4_iiiiiiPx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123polish_walk_tile_kernelILi0EEEvPKjS2_PKiS4_S2_S2_S4_S4_iiiiiiPx
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+"""
+    assert chip_smoke.ptxas_report(log, "frag_carried_kernel") == {
+        "frag_carried_kernel": (72, 0, 0, 0)}
+    assert chip_smoke.ptxas_report(log, "polish_walk_tile_kernel") == {
+        "polish_walk_tile_kernel<0>": (40, 0, 4, 4)}
+    assert chip_smoke.ptxas_report(log, "frag_core_kernel") == {}
 
 
 def wide_bench_case(case):

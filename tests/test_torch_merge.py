@@ -3,20 +3,26 @@ same steps in torch) against the row-by-row min of row scores: random
 words, hypothesis cases, the X / I sentinels, boundaries near BIG, all-ones
 and all-zeros words; the free-start merge's closed form; and the slice-0
 fold (a free-start merge after a column that already lies on or below the
-free start gives back the column advanced with hin 0)."""
+free start gives back the column advanced with hin 0).  And the carried
+entry of csrc/frag_core.cu, a lane a row: its column-0 merge against the
+plain version's 33-row merge, its X scan against the row loop, and its
+columns split at the slot's length against all 31 run at once."""
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from graphchainer_torch.ops.frag_align import BIG
+from graphchainer_torch.ops.frag_align import BIG, _MergeAcc
 from graphchainer_torch.ops.myers import (MASK32, ONES, W, advance_word,
                                           popcount32)
 from graphchainer_torch.ops.word_merge import (free_start_word,
                                                merge_free_start,
+                                               merge_words_lanes,
                                                merge_words_rows,
-                                               merge_words_swar)
+                                               merge_words_swar,
+                                               split_columns, whole_columns,
+                                               x_scan_lanes, x_scan_rows)
 
 def _t(x):
     return torch.as_tensor(np.asarray(x, dtype=np.int64))
@@ -211,3 +217,86 @@ def test_slice0_seed_word_is_dominated():
     got = merge_words_rows(svp, svn, sbound, evp, evn, eb)
     for g, w in zip(got, (evp, evn, esb, eb)):
         assert torch.equal(g, w)
+
+
+def _candidates(rng, n_words, n):
+    """n_words candidate words of n lanes each, as the carried kernel's
+    column 0 meets them: words at nearby boundaries, a few far above, and
+    the sentinels (ONES, 0, BIG) and (ONES, 0, BIG + 32)."""
+    base = rng.integers(-50, 3000, n)
+    out = []
+    for _ in range(n_words):
+        vp, vn = _words(rng, n, density=rng.uniform(0.3, 1.0))
+        sb = base + rng.integers(-40, 41, n)
+        kind = rng.random(n)
+        sb = np.where(kind < 0.05, BIG - 64 - rng.integers(0, 8, n), sb)
+        vp = np.where(kind > 0.95, MASK32, vp)
+        vn = np.where(kind > 0.95, 0, vn)
+        sb = np.where(kind > 0.95, BIG + 32 * (kind > 0.975), sb)
+        out.append((_t(vp), _t(vn), _t(sb)))
+    return out
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 3, 5])
+def test_lane_merge_matches_plain(n_words):
+    """The carried kernel's column-0 merge (a lane a row, ballots) gives
+    the plain version's 33-row merge, and one word back as it is."""
+    rng = np.random.default_rng(500 + n_words)
+    n = 3000
+    words = _candidates(rng, n_words, n)
+    got = merge_words_lanes(words)
+    if n_words == 1:
+        want = words[0]
+    else:
+        acc = _MergeAcc((1, n), "cpu")
+        for vp, vn, sb in words:
+            acc.add(vp[None], vn[None], sb[None])
+        want = tuple(x[0] for x in acc.pack())
+    for name, g, w in zip(("vp", "vn", "sb"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("s", [0, 1, 2])
+def test_x_scan_lanes_matches_rows(s):
+    """The X scan a lane a row (max, then the first row at it) against the
+    row loop, over rows cut at the fragment's end (nr from below 0 to past
+    32) and scores from small to near BIG, where X falls below -BIG."""
+    rng = np.random.default_rng(600 + s)
+    n = 4000
+    vp, vn = _words(rng, n, density=rng.uniform(0.2, 1.0))
+    esb = rng.integers(-10, 200, n)
+    esb = np.where(rng.random(n) < 0.1, BIG - 1 - rng.integers(0, 40, n),
+                   esb)
+    nr = rng.integers(-3, 40, n)
+    m, row = x_scan_lanes(_t(vp), _t(vn), _t(esb), s, _t(nr))
+    sv, srow = x_scan_rows(_t(vp), _t(vn), _t(esb), s, _t(nr))
+    counts = m > -BIG
+    assert torch.equal(torch.where(counts, m, -BIG), sv)
+    assert torch.equal(torch.where(counts, row, 0), srow)
+    assert (~counts).any() and counts.any()
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_split_columns_match_whole(carried):
+    """Two slices of a slot's columns, split at its length as the carried
+    kernel runs them (main bits below it, tail bits from it on, each slice
+    entered by its own part of the bits before), give the bottom-row bits
+    of all 31 columns run at once: the state out is main | tail."""
+    rng = np.random.default_rng(700 + carried)
+    lens = np.array([-1, 0, 1, 2, 5, 17, 31, 32, 33, 40])
+    n = 100 * len(lens)
+    slen = _t(np.repeat(lens, 100))
+    if carried:
+        bits, sign = (_t(rng.integers(0, 1 << 32, n)) for _ in range(2))
+        hp, hn = bits & sign, bits & ~sign & MASK32
+    else:
+        hp, hn = torch.full((n,), ONES), torch.zeros(n, dtype=torch.int64)
+    mp, mn, tp, tn = hp, hn, hp, hn
+    for _ in range(2):
+        vp, vn = (_t(x) for x in _words(rng, n))
+        eq_cols = [_t(rng.integers(0, 1 << 32, n)) for _ in range(W)]
+        hp, hn = whole_columns(vp, vn, eq_cols, hp, hn)
+        mp, mn, tp, tn = split_columns(vp, vn, eq_cols, slen, mp, mn, tp,
+                                       tn)
+        assert not ((mp & tp) | (mn & tn)).any()
+        assert torch.equal(mp | tp, hp) and torch.equal(mn | tn, hn)
