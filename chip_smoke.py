@@ -83,7 +83,21 @@ Phases (any failure raises and exits non-zero before the result line):
      on the bench reads as two processes on one card (gloo at a free
      local port) against one process: the .part0 / .part1 GAF lines,
      merged and sorted, equal the one-process run's, and so do the
-     reported counts.
+     reported counts;
+  8. several devices in one process (parallel/device.py): the model on
+     two shards of cuda:0, and on every card when there are several:
+     the 128-read bench batch and a GA batch of 32 bench reads give one
+     shard's alignments, every shard launching each kernel of the path;
+     the bench pass on the shards and on one shard in turns (one, the
+     shards, the shards, one; reads/s; aligned_fraction and mean_norm_edit_distance equal and in
+     bounds), and at a polish band of 12; shard_graph_tables on
+     tests/test_multichip.py's five-component graph equal to the
+     replicated tables; each run's launches by shard;
+  9. python -m graphchainer_torch.tools fusion-finder on the card on the
+     two-gene input of tests/test_cli_tools.py: the single expected call.
+
+--devices-only runs phases 8 and 9 alone after the build and the
+workload (for a machine with several cards).
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 {"ok": true, "device": {...}}.  The line before them is the kernel table.
@@ -1412,6 +1426,195 @@ def run_big_mem(gb, mpcb, indexb, readsb, dev):
                 bytes=size, seconds=wall, aligned=ok, ned=ned)
 
 
+# ---------------------------------------------------------------- phase 8
+def shard_sets():
+    """(label, devices) of the multi-device runs: two shards of cuda:0,
+    and every card when the machine has several."""
+    import torch
+    n = torch.cuda.device_count()
+    out = [("two shards of cuda:0", ("cuda:0", "cuda:0"))]
+    if n > 1:
+        out.append((f"every card ({n})",
+                    tuple(f"cuda:{i}" for i in range(n))))
+    return out
+
+
+def shard_launches(label, names, n_shards):
+    """The launches of the run just made, by shard; fails unless every
+    shard launched each kernel of `names`."""
+    from graphchainer_torch.ops import _cuda
+    per = _cuda.launches_by_shard()
+    for i in range(n_shards):
+        for name in names:
+            if per.get(i, {}).get(name, 0) <= 0:
+                raise AssertionError(f"{label}: shard {i} never launched "
+                                     f"{name} ({json.dumps(per)})")
+    return {str(i): {k: v for k, v in c.items() if v}
+            for i, c in per.items()}
+
+
+def run_multidevice(g, mpc, index, gx, reads, chunks, workers):
+    """The device stages split over shards (parallel/device.py): on each
+    of shard_sets(), the 128-read bench batch (CLC) and a GA batch of 32
+    bench reads give one shard's alignments, every shard launching each
+    kernel of its path; the bench pass on the shards against one shard's
+    in turns (reads/s, accuracy equal), and at a polish band of
+    12 (the run-time-bw entries on every shard); and shard_graph_tables
+    on the five-component graph (four reads a component) equal to the
+    replicated tables'."""
+    import torch
+    from graphchainer_torch.models.aligner import GraphAlignerModel
+    from graphchainer_torch.models.chainer import (ChainerConfig,
+                                                   ChainerModel, timers)
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import component_chains_workload
+    one = ChainerModel(g, mpc, index, gx=gx, device="cuda:0")
+    batch = reads[:128]
+    want = one.align_batch(batch)
+    ga_reads = reads[:32]
+    ga_want = GraphAlignerModel(g, index, gx=gx,
+                                device="cuda:0").align_batch(ga_reads)
+    cg, cmpc, cidx, creads = component_chains_workload(4)
+    sharded_cfg = ChainerConfig(shard_graph_tables=True)
+    c_want = ChainerModel(cg, cmpc, cidx, sharded_cfg,
+                          device="cuda:0").align_batch(creads)
+    if sum(not a.failed for a in c_want) != len(creads):
+        raise AssertionError("five components: not every read aligned")
+
+    def timed_pass(model):
+        timers.reset()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        af, ned = run_pass(model, chunks, workers)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, af, ned
+
+    out = {}
+    n_reads = sum(len(c) for c in chunks)
+    for label, devs in shard_sets():
+        m = ChainerModel(g, mpc, index, gx=gx, device=devs)
+        n = len(m.devices)
+        _cuda.reset_launches()
+        got = m.align_batch(batch)
+        torch.cuda.synchronize()
+        clc = shard_launches(f"{label}, 128 reads", MAIN_PATH_KERNELS, n)
+        if not same_alignments(want, got):
+            raise AssertionError(f"{label}: the 128-read batch differs from "
+                                 "one shard's")
+        log(f"{label}: {n} shards on {sorted({str(d) for d in m.devices})};"
+            f" the 128-read batch == one shard's alignments; launches by "
+            f"shard {json.dumps(clc)}")
+        _cuda.reset_launches()
+        ga_got = GraphAlignerModel(g, index, gx=gx,
+                                   device=devs).align_batch(ga_reads)
+        torch.cuda.synchronize()
+        ga = shard_launches(f"{label}, GA batch", GA_PATH_KERNELS, n)
+        if not same_alignments(ga_want, ga_got):
+            raise AssertionError(f"{label}: the GA batch differs from one "
+                                 "shard's")
+        log(f"{label}: GA mode on {len(ga_reads)} reads == one shard's "
+            f"alignments; launches by shard {json.dumps(ga)}")
+        # in turns, one shard / the shards / the shards / one shard
+        turns = {}
+        for key, mm in (("one", one), ("shards", m), ("shards", m),
+                        ("one", one)):
+            turns.setdefault(key, []).append(timed_pass(mm))
+            if key == "shards":
+                bench = shard_launches(f"{label}, bench pass",
+                                       MAIN_PATH_KERNELS, n)
+                stages = {k: round(v[0], 3)
+                          for k, v in timers.snapshot().items()}
+        (_, af1, ned1), (_, af, ned) = turns["one"][0], turns["shards"][0]
+        rates = {k: [n_reads / t[0] for t in v] for k, v in turns.items()}
+        rate1, rate = (sum(rates[k]) / 2 for k in ("one", "shards"))
+        log(f"{label}: bench pass of {n_reads} reads in turns, one shard / "
+            f"the shards / the shards / one shard: "
+            f"{rates['one'][0]:.2f} / {rates['shards'][0]:.2f} / "
+            f"{rates['shards'][1]:.2f} / {rates['one'][1]:.2f} reads/s; "
+            f"means {rate:.2f} against one shard's {rate1:.2f} = "
+            f"{rate / rate1:.3f}x; aligned_fraction {af:.4f}, "
+            f"mean_norm_edit_distance {ned:.4f} (one shard {af1:.4f}, "
+            f"{ned1:.4f}); launches by shard {json.dumps(bench)}; stage "
+            f"seconds of its last pass (thread-summed) {json.dumps(stages)}")
+        if any(t[1:] != (af, ned) for v in turns.values() for t in v):
+            raise AssertionError(f"{label}: the bench passes' accuracy "
+                                 "differs between turns")
+        if (af, ned) != (af1, ned1) or af < ACC_ALIGNED_MIN \
+                or ned > ACC_NORM_ED_MAX:
+            raise AssertionError(f"{label}: the bench pass's accuracy is not "
+                                 "one shard's, or out of bounds")
+        _cuda.reset_launches()
+        run_pass(ChainerModel(g, mpc, index,
+                              ChainerConfig(polish_band_words=12), gx=gx,
+                              device=devs), chunks, workers)
+        torch.cuda.synchronize()
+        bench12 = shard_launches(f"{label}, bench pass at polish band 12",
+                                 ("frag_core",) + ANY_PATH_KERNELS, n)
+        log(f"{label}: bench pass at polish band 12, launches by shard "
+            f"{json.dumps(bench12)}")
+        sm = ChainerModel(cg, cmpc, cidx, sharded_cfg, device=devs)
+        if sm.gx.shards is None:
+            raise AssertionError(f"{label}: no component shards planned")
+        _cuda.reset_launches()
+        c_got = sm.align_batch(creads)
+        torch.cuda.synchronize()
+        comp = shard_launches(f"{label}, sharded tables", ("frag_core",), n)
+        if not same_alignments(c_want, c_got):
+            raise AssertionError(f"{label}: sharded tables differ from the "
+                                 "replicated tables")
+        log(f"{label}: shard_graph_tables on the five-component graph "
+            f"({len(creads)} reads, {sm.gx.shards[1].rows_per_dev} rows a "
+            f"block) == replicated tables; launches by shard "
+            f"{json.dumps(comp)}")
+        out[label] = dict(shards=n, reads_per_s=rate,
+                          one_shard_reads_per_s=rate1, turns=rates,
+                          aligned_fraction=af, norm_ed=ned,
+                          launches_by_shard=dict(bench=bench, ga=ga,
+                                                 bench12=bench12,
+                                                 sharded_tables=comp))
+    return out
+
+
+def run_fusion():
+    """python -m graphchainer_torch.tools fusion-finder on the card (the
+    current card) on workload.fusion_workload's two genes: the fused read
+    is the single call, with the pair (GENEA, GENEB), and GA mode's
+    kernels launched."""
+    import os
+    import tempfile
+    import torch
+    from graphchainer_torch import tools
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import fusion_workload
+    with tempfile.TemporaryDirectory() as td:
+        tsv = os.path.join(td, "fusions.tsv")
+        corr = os.path.join(td, "corr.fa")
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        rc = tools.main(fusion_workload(td) + [
+            "--fusions-out", tsv, "--corrected-out", corr, "--device",
+            "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _cuda.launches()
+        with open(tsv) as fh:
+            calls = [ln.split("\t") for ln in fh.read().splitlines()]
+        with open(corr) as fh:
+            rec = fh.read().splitlines()
+    if rc != 0 or len(calls) != 1 or calls[0][0] != "fused" \
+            or {calls[0][1], calls[0][2]} != {"GENEA", "GENEB"} \
+            or len(rec) != 2 or len(rec[1]) < 500:
+        raise AssertionError(f"fusion-finder: rc {rc}, calls {calls}")
+    # GA windows, then the polish at the tool's band of 4 words (the
+    # run-time-bw entries)
+    for name in ("frag_core_carried",) + ANY_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"fusion-finder: {name} never launched")
+    log(f"fusion-finder on the card: the single call {calls[0]} in "
+        f"{wall:.2f} s; launches {json.dumps(launches)}")
+    return dict(call=calls[0], seconds=wall, launches=launches)
+
+
 # ---------------------------------------------------------------- phase 3
 def run_pass(model, chunks, workers):
     import numpy as np
@@ -1478,6 +1681,10 @@ def main() -> int:
                     help="one more pass of the main path under "
                          "torch.profiler: the device's busy share and the "
                          "kernels' device time by name")
+    ap.add_argument("--devices-only", action="store_true",
+                    help="after the build and the workload, only phases 8 "
+                         "and 9 (several devices, the fusion finder): the "
+                         "run for a machine with several cards")
     opts = ap.parse_args()
 
     import torch
@@ -1520,6 +1727,15 @@ def main() -> int:
     log(f"workload: {graph_bp} bp graph ({g.n_nodes} split nodes), "
         f"{n_reads} reads of ~{read_len} bp; host build {build_s:.2f} s")
     model = ChainerModel(g, mpc, index, device="cuda")
+    if opts.devices_only:
+        chunks = [reads[i:i + 128] for i in range(0, len(reads), 128)]
+        run_pass(model, chunks, 4)                  # warm
+        out = dict(multidevice=run_multidevice(g, mpc, index, model.gx,
+                                               reads, chunks, 4),
+                   fusion=run_fusion())
+        print(json.dumps(out))
+        print(smi)
+        return 0
 
     # ---- host work in processes of its own, beside phases 2-5, in the
     # order it is needed: the plain versions of the polish kernels on the
@@ -1737,6 +1953,12 @@ def main() -> int:
         raise AssertionError("file seeds: not every read aligned")
     pool.shutdown()
 
+    # ---- 8. several devices in one process; 9. the fusion finder
+    multi = run_multidevice(g, mpc, index, model.gx, reads, chunks, workers)
+    fusion = run_fusion()
+    log(f"devices: {torch.cuda.device_count()} card(s) visible; shard "
+        f"sets run: {json.dumps({k: v['shards'] for k, v in multi.items()})}")
+
     # No single PyTorch call computes any of these functions (a banded
     # bit-parallel DP over a graph band, its linear form with a dump, a
     # data-dependent backtrace), so library_ms is null throughout.  The
@@ -1772,6 +1994,12 @@ def main() -> int:
             bound_ms_by_bw={str(bw): round(pol_main[bw][f"{key}_bound"][0], 6)
                             for bw in bands}, **more)
 
+    def by_shard(kind, name):
+        """Each shard set's launches of `name` by shard (phase 8)."""
+        return {label: {i: c.get(name, 0) for i, c in
+                        v["launches_by_shard"][kind].items()}
+                for label, v in multi.items()}
+
     frag_src = "graphchainer_torch/csrc/frag_core.cu"
     frag_tpu = "graphchainer_tpu/ops/pallas_frag.py:278"
     fm = frag["cases"][0]
@@ -1788,7 +2016,8 @@ def main() -> int:
                                 for c in frag["cases"]},
               ptxas={k: list(v) for k, v in frag["ptxas"].items()},
               launches_by_path={k: v["frag_core"]
-                                for k, v in seeded_launches.items()}),
+                                for k, v in seeded_launches.items()},
+              launches_by_shard=by_shard("bench", "frag_core")),
         entry("frag_core_carried", frag_src,
               "graphchainer_tpu/ops/frag_align.py:595", cm["err"], cm["ms"],
               cm["plain_ms"], cm["bound"],
@@ -1804,8 +2033,10 @@ def main() -> int:
                       "launches"]["frag_core_carried"],
                   "golden_badread (CLC, rescue)": gold["golden_badread"][
                       "launches"]["frag_core_carried"],
+                  "fusion-finder": fusion["launches"]["frag_core_carried"],
                   **{k: v["frag_core_carried"]
                      for k, v in seeded_launches.items()}},
+              launches_by_shard=by_shard("ga", "frag_core_carried"),
               ms_by_case={c["label"]: round(c["ms"], 4)
                           for c in carried_cases},
               plain_ms_by_case={c["label"]: round(c["plain_ms"], 3)
@@ -1816,20 +2047,28 @@ def main() -> int:
               on_main_path=True),
         polish_entry("polish_core", "core", WARP_BANDS, 8,
                      launches_by_path={k: v["polish_core"]
-                                       for k, v in seeded_launches.items()}),
+                                       for k, v in seeded_launches.items()},
+                     launches_by_shard=by_shard("bench", "polish_core")),
         polish_entry("polish_walk", "walk", WARP_BANDS, 8,
                      launches_by_path={k: v["polish_walk"]
-                                       for k, v in seeded_launches.items()}),
+                                       for k, v in seeded_launches.items()},
+                     launches_by_shard=by_shard("bench", "polish_walk")),
         polish_entry("polish_core_any", "core", ANY_BANDS, 12,
                      launches=launches12["polish_core_any"],
                      ptxas={k: list(v) for k, v in pptx.items()},
                      launches_by_path={"bench pass, polish band 12":
-                                       launches12["polish_core_any"]}),
+                                       launches12["polish_core_any"],
+                                       "fusion-finder":
+                                       fusion["launches"]["polish_core_any"]},
+                     launches_by_shard=by_shard("bench12", "polish_core_any")),
         polish_entry("polish_walk_any", "walk", ANY_BANDS, 12,
                      launches=launches12["polish_walk_any"],
                      ptxas={k: list(v) for k, v in wptx_walk.items()},
                      launches_by_path={"bench pass, polish band 12":
-                                       launches12["polish_walk_any"]}),
+                                       launches12["polish_walk_any"],
+                                       "fusion-finder":
+                                       fusion["launches"]["polish_walk_any"]},
+                     launches_by_shard=by_shard("bench12", "polish_walk_any")),
     ]
     wm = wide_checks[0]
     kernels.append(entry(

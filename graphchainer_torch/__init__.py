@@ -1,16 +1,21 @@
 """graphchainer_torch — the PyTorch / CUDA port of graphchainer_tpu.
 
-The co-linear chaining (CLC) main path of the JAX package, rebuilt on
-PyTorch for an NVIDIA H100:
+Every mode of the JAX package, rebuilt on PyTorch for the NVIDIA H100:
 
-  cli.py / pipeline.py  read streaming -> batched alignment -> GAF writer
-  models/chainer.py     ChainerModel.align_batch (CLC mode)
+  cli.py / pipeline.py  read streaming -> batched alignment -> writers
+  models/               ChainerModel (CLC mode), GraphAlignerModel (GA
+                        mode, the CLC rescue), OptimalAlignerModel
   align/                fragment jobs and bands, chaining event packer,
                         polish glue, GAF emission (JAX-free host code)
   ops/                  torch device code: the fragment DP, the chaining
                         event sweep, the banded polish fill and backtrace
-  csrc/                 hand-written CUDA kernels (sm_90a) for the two
-                        device hot spots: frag_core.cu, polish_core.cu
+  csrc/                 hand-written CUDA kernels (sm_90a): frag_core.cu,
+                        frag_wide.cu, polish_core.cu, polish_walk.cu
+  parallel/             several devices in one process (device.py,
+                        collectives.py, sharded_graph.py, mesh.py) and
+                        several processes (multihost.py)
+  tools.py              the auxiliary subcommands (python -m
+                        graphchainer_torch.tools)
 
 Every kernel sits beside a plain torch version of the same function.  A
 wrapper runs the plain version only for tensors on the CPU; for a CUDA

@@ -5,9 +5,11 @@ JAX-free copies of the host half of graphchainer_tpu/align/anchors.py
 (GraphTensors, assemble_batch_cols, FragJob, assemble_batch, CarryJob,
 assemble_carry_batch, pack_row_planes, level_bucket, _warn_truncated,
 backwalk; JobCols lives in native.py) plus `run_fragments`, which runs
-ops/frag_kernel.frag_core over a whole batch on the model's device: the
-node tables stay resident there, the band arrays go up in their host
-types (`fragment_inputs`).
+ops/frag_kernel.frag_core over a whole batch on the model's devices: the
+node tables stay resident on each, the band arrays go up in their host
+types (`fragment_inputs`), a row block a device (parallel/device.py), or
+each fragment to the device of its component's table block
+(parallel/sharded_graph.py).
 
 Each fragment with a seed at read row r0 and graph position (v, o) is two
 jobs: forward rows read[r0:end) from node v trimmed to start at offset o,
@@ -32,6 +34,11 @@ from graphchainer_torch.utils import timers
 from graphchainer_torch.utils.bits import reverse_eq_planes
 from graphchainer_torch.ops import frag_align, frag_kernel
 from graphchainer_torch.ops.myers import to_i32_bits
+from graphchainer_torch.parallel.device import (concat_rows, local_devices,
+                                                run_shards, shard_call,
+                                                unpermute, upload)
+from graphchainer_torch.parallel.sharded_graph import (localize_bands,
+                                                       route_fragments)
 
 W = 32
 
@@ -58,6 +65,9 @@ class GraphTensors:
     node_len64: np.ndarray
     seq_bytes: np.ndarray = None   # uint8 concat of all digraph sequences
     di_base: np.ndarray = None     # int64 [n_di+1] offsets into seq_bytes
+    # component-sharded tables (parallel/sharded_graph.py), published as
+    # one tuple: (devices, ShardPlan, [(eq, len)] per shard)
+    shards: Optional[tuple] = field(default=None, repr=False)
     _dev: dict = field(default_factory=dict, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False)
@@ -151,13 +161,19 @@ class GraphTensors:
         with self._lock:
             got = self._dev.get(dev)
             if got is None:
-                eq = torch.as_tensor(self.node_eq_cat.astype(np.int64))
-                if dev.type == "cuda":
-                    eq = to_i32_bits(eq)
-                got = (eq.to(dev),
-                       torch.as_tensor(self.node_len_cat).to(dev))
-                self._dev[dev] = got
+                got = self._dev[dev] = node_table(
+                    self.node_eq_cat, self.node_len_cat, dev)
             return got
+
+
+def node_table(node_eq: np.ndarray, node_len: np.ndarray, device):
+    """(node_eq, node_len) tensors on `device`: Eq words as int64 on the
+    CPU, as uint32 bits in int32 on a CUDA device (half the bytes)."""
+    dev = torch.device(device)
+    eq = torch.as_tensor(node_eq.astype(np.int64))
+    if dev.type == "cuda":
+        eq = to_i32_bits(eq)
+    return eq.to(dev), torch.as_tensor(node_len).to(dev)
 
 
 def assemble_batch_cols(gx: GraphTensors, jc: JobCols, read_mm_cat:
@@ -534,19 +550,16 @@ def drop_self_edges(band_in: np.ndarray) -> np.ndarray:
         if own.any() else band_in
 
 
-def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
-                    band_in: np.ndarray, seed_shift: np.ndarray,
-                    req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
-                    band_level: np.ndarray, device, carry_in=None):
-    """The arguments of ops/frag_kernel.frag_core for a batch on
-    `device`: the resident node tables, then the band arrays as the band
-    build made them (int32 ids, int8 in-edges and levels, int32 shifts
-    (F,) or (F, B), uint32 planes as int32 bits, int32 rows), with the
-    2-bit format's row padding and in-edge decoding where the reference
-    would use that format, and the carried state (ssb int32, hp / hn
-    uint32 as int32 bits) in the keyword `carry`.  The arrays go up in
-    one copy.  Returns (args, keyword args)."""
-    dev_eq, dev_len = gx.device_tables(device)
+def band_arrays(band_nodes_cat: np.ndarray, band_in: np.ndarray,
+                seed_shift: np.ndarray, req: np.ndarray, rows: np.ndarray,
+                S: int, max_in: int, band_level: np.ndarray, carry_in=None):
+    """frag_core's band arguments as host arrays, in the band build's
+    types (int32 ids, int8 in-edges and levels, int32 shifts (F,) or
+    (F, B), uint32 planes as int32 bits, int32 rows), with the 2-bit
+    format's row padding and in-edge decoding where the reference would
+    use that format (decided on the whole batch), then the carried state
+    (ssb int32, hp / hn uint32 as int32 bits); and the keyword
+    arguments.  Every array has the fragments on axis 0."""
     B = band_nodes_cat.shape[1]
     n_levels = level_bucket(band_level, B)
     if code0_padding(band_nodes_cat, band_in, req, rows, max_in):
@@ -562,32 +575,31 @@ def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
     if carry_in is not None:
         arrays += [(carry_in[0], i32), (bits(carry_in[1]), i32),
                    (bits(carry_in[2]), i32)]
-    band = upload([np.ascontiguousarray(a, dtype=t) for a, t in arrays],
-                  dev_eq.device)
-    kw = dict(S=S, max_in=max_in, n_levels=n_levels)
-    if carry_in is not None:
+    return ([np.ascontiguousarray(a, dtype=t) for a, t in arrays],
+            dict(S=S, max_in=max_in, n_levels=n_levels))
+
+
+def _frag_args(eq, ln, band, kw):
+    """frag_core's (args, keyword args) from the node table and the
+    uploaded band arrays (the carry, if any, last)."""
+    kw = dict(kw)
+    if len(band) > 6:
         kw["carry"] = tuple(band[6:])
-    return (dev_eq, dev_len) + tuple(band[:6]), kw
+    return (eq, ln) + tuple(band[:6]), kw
 
 
-_TORCH_DTYPE = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
-                np.dtype(np.int32): torch.int32}
-
-
-def upload(arrays, device):
-    """Contiguous numpy arrays on `device` in one copy: packed at 16-byte
-    offsets into one byte buffer, handed back as views of its copy in
-    their own dtypes and shapes (each 16-byte aligned)."""
-    offs, n = [], 0
-    for a in arrays:
-        offs.append(n)
-        n += -(-a.nbytes // 16) * 16
-    buf = np.empty(n, dtype=np.uint8)
-    for a, o in zip(arrays, offs):
-        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev_buf = torch.from_numpy(buf).to(device)
-    return [dev_buf[o:o + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(a.shape)
-            for a, o in zip(arrays, offs)]
+def fragment_inputs(gx: GraphTensors, band_nodes_cat: np.ndarray,
+                    band_in: np.ndarray, seed_shift: np.ndarray,
+                    req: np.ndarray, rows: np.ndarray, S: int, max_in: int,
+                    band_level: np.ndarray, device, carry_in=None):
+    """The arguments of ops/frag_kernel.frag_core for a batch on one
+    `device`: the resident node tables, then band_arrays' arrays in one
+    copy, the carried state in the keyword `carry`.  Returns (args,
+    keyword args)."""
+    dev_eq, dev_len = gx.device_tables(device)
+    arrays, kw = band_arrays(band_nodes_cat, band_in, seed_shift, req, rows,
+                             S, max_in, band_level, carry_in)
+    return _frag_args(dev_eq, dev_len, upload(arrays, dev_eq.device), kw)
 
 
 def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
@@ -597,9 +609,13 @@ def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
                   carry_in: Optional[tuple] = None,
                   want_state: bool = False,
                   want_xcells: bool = False) -> frag_align.FragResult:
-    """The fragment DP over a whole batch on `device` (one call: no
-    chunking, wire packing or band cache).  Returns a numpy FragResult
-    whose best_in is int8 (F, B, S).
+    """The fragment DP over a whole batch on `device`, a device or a list
+    of them (parallel/device.local_devices): one launch a shard, each
+    device a row block against its resident copy of the node tables, or,
+    where the model sharded the tables by component, each fragment on
+    its component's shard.  No chunking, wire packing or band cache.
+    Returns a numpy FragResult in batch order whose best_in is int8
+    (F, B, S).
 
     seed_shift: (F,) trims slot 0 (fresh windows), (F, B) every slot
                 (carried windows)
@@ -609,11 +625,50 @@ def run_fragments(gx: GraphTensors, band_nodes_cat: np.ndarray,
     want_state: also return out_ssb / out_hp (uint32) / out_hn (uint32),
                 the carry of the next window
     want_xcells: also return xbest / xslot / xrow, the best X-score cell"""
-    args, kw = fragment_inputs(gx, band_nodes_cat, band_in, seed_shift, req,
-                               rows, S, max_in, band_level, device,
-                               carry_in=carry_in)
-    return frag_kernel.to_numpy(frag_kernel.frag_core(
-        *args, **kw, want_state=want_state, want_xcells=want_xcells))
+    devices = local_devices(device)
+    arrays, kw = band_arrays(band_nodes_cat, band_in, seed_shift, req, rows,
+                             S, max_in, band_level, carry_in)
+
+    def launch(eq, ln, band):
+        args, kw2 = _frag_args(eq, ln, band, kw)
+        return frag_kernel.frag_core(*args, **kw2, want_state=want_state,
+                                     want_xcells=want_xcells)
+    # component-sharded tables under the JAX package's condition
+    # (graphchainer_tpu/align/anchors.py:841-851): a fresh batch with no
+    # carry, state or X cells, B <= 32; otherwise the replicated tables
+    sh = gx.shards
+    F, B = band_nodes_cat.shape
+    if (sh is not None and sh[0] == devices and len(devices) > 1 and F
+            and carry_in is None and not want_state and not want_xcells
+            and B <= 32):
+        return _run_fragments_sharded(sh, band_nodes_cat, arrays, launch)
+    return shard_call(
+        lambda *band: launch(*gx.device_tables(band[0].device), band),
+        arrays, (True,) * len(arrays), devices,
+        download=frag_kernel.to_numpy)
+
+
+def _run_fragments_sharded(shards, band_nodes_cat, arrays, launch):
+    """run_fragments over component-sharded tables: each fragment goes to
+    its seed's shard with its band ids made shard-local (the 2-bit
+    format's decision stays the whole batch's, on global ids, so the
+    result equals the replicated tables' run), each shard's rows go up in
+    one copy and run against its table block, and the results come back
+    in batch order."""
+    devices, plan, tables = shards
+    _, order, keep, Fd = route_fragments(plan, band_nodes_cat)
+    arrays = [localize_bands(plan, band_nodes_cat)] + arrays[1:]
+    calls, sels = [], []
+    for d, (dev, (eq, ln)) in enumerate(zip(devices, tables)):
+        sel = order[d * Fd:(d + 1) * Fd][keep[d * Fd:(d + 1) * Fd]]
+        if len(sel):
+            sels.append(sel)
+            calls.append((d, dev, lambda eq=eq, ln=ln, dev=dev, sel=sel:
+                          launch(eq, ln, upload(
+                              [np.ascontiguousarray(a[sel]) for a in arrays],
+                              dev))))
+    return unpermute(concat_rows(run_shards(calls, frag_kernel.to_numpy)),
+                     np.concatenate(sels))
 
 
 def backwalk(best_in: np.ndarray, band_nodes: np.ndarray, end_slot: int,

@@ -2,10 +2,12 @@
 
 Port of graphchainer_tpu/align/polish.py: builds the batched inputs of
 ops/linear_align.polish_full_packed2 (2-bit base codes) or
-polish_full_packed (4-bit nibbles, for IUPAC bases) on the device, and
-decodes the packed rows.  Reads whose walk leaves the band, overflows
-the ops buffer or touches a band edge are retried with a doubled band up
-to MAX_BAND_WORDS.
+polish_full_packed (4-bit nibbles, for IUPAC bases), runs it on the
+model's devices (a row block of reads a device, parallel/device.py, the
+per-batch read table replicated, as JAX shards them at
+align/polish.py:296-330), and decodes the packed rows.  Reads whose
+walk leaves the band, overflows the ops buffer or touches a band edge are
+retried with a doubled band up to MAX_BAND_WORDS.
 
 The padded sizes rmax / pmax stay the reference's power-of-two buckets:
 they set max_steps and ops_cap, and ops_cap decides whether a walk
@@ -19,6 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from graphchainer_torch.parallel.device import local_devices, shard_call
 from graphchainer_torch.utils import timers
 from graphchainer_torch.utils.seq import match_masks
 from graphchainer_torch.ops import linear_align
@@ -68,10 +71,11 @@ def pack_codes2(mm: np.ndarray) -> np.ndarray:
 
 
 def build_read_table(seqs: Sequence[str], device):
-    """Per-batch read-code table on `device`: (Rp, rmax/16) words, 16
-    2-bit codes per word.  Built once per batch and shared by the polish
-    passes, which gather rows by index.  None when any read has an IUPAC
-    base (the polish then packs its reads itself)."""
+    """Per-batch read-code table on `device` (the first, of a list):
+    (Rp, rmax/16) words, 16 2-bit codes per word.  Built once per batch
+    and shared by the polish passes, which gather rows by index (on the
+    other devices of a list, from a copy made once).  None when any read
+    has an IUPAC base (the polish then packs its reads itself)."""
     R = len(seqs)
     lens = np.array([len(s) for s in seqs], dtype=np.int64)
     rmax = _round_up(int(lens.max()) if R else 1, 1024)
@@ -82,7 +86,8 @@ def build_read_table(seqs: Sequence[str], device):
     in_range = np.arange(rmax)[None, :] < lens[:, None]
     if (in_range & ((mm[:R] == 0) | ((mm[:R] & (mm[:R] - 1)) != 0))).any():
         return None
-    return torch.as_tensor(pack_codes2(mm).astype(np.int64)).to(device)
+    return torch.as_tensor(pack_codes2(mm).astype(np.int64)).to(
+        local_devices(device)[0])
 
 
 def _ops_cap(rmax: int, pmax: int, bw: int) -> int:
@@ -95,8 +100,8 @@ def _ops_cap(rmax: int, pmax: int, bw: int) -> int:
 def polish_batch(reads: Sequence[str], paths: Sequence[str], bw: int = 8,
                  table=None, device="cuda") -> List[PolishOutcome]:
     """Global NW of each read vs its path sequence, batched on `device`
-    (the card unless the caller asks for the CPU), with the band-doubling
-    retry.
+    (the card unless the caller asks for the CPU; a device or a list of
+    them, a row block of reads each), with the band-doubling retry.
 
     table: optional (dev_tbl, row_idx) — build_read_table's table and the
     row of each read in it (rows must hold exactly reads[i]'s codes)."""
@@ -149,33 +154,38 @@ def _polish_once(reads: Sequence[str], paths: Sequence[str], bw: int,
     if table is not None and table[0].shape[1] * 16 < rmax:
         table = None
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(
-            device, torch.int64)
+    def i64(a):
+        return np.ascontiguousarray(a, dtype=np.int64)
 
     path_mm = _pack_rows(paths, path_len, pmax)
     path_pure = _pure(path_mm, path_len)
+    tbl = ()
     if table is not None and path_pure:
         # read rows gathered on the device from the batch table
         dev_tbl, row_idx = table
-        read_w = dev_tbl[dev(np.asarray(row_idx, dtype=np.int64))]
-        path_w = dev(pack_codes2(path_mm).astype(np.int64))
+        read_w = i64(row_idx)
+        tbl = (dev_tbl,)
+        path_w = i64(pack_codes2(path_mm))
         kernel = linear_align.polish_full_packed2
         rmax = dev_tbl.shape[1] * 16
     else:
         read_mm = _pack_rows(reads, read_len, rmax)
         if path_pure and _pure(read_mm, read_len):
-            read_w = dev(pack_codes2(read_mm).astype(np.int64))
-            path_w = dev(pack_codes2(path_mm).astype(np.int64))
+            read_w = i64(pack_codes2(read_mm))
+            path_w = i64(pack_codes2(path_mm))
             kernel = linear_align.polish_full_packed2
         else:
-            read_w = dev(pack_nibbles(read_mm).astype(np.int64))
-            path_w = dev(pack_nibbles(path_mm).astype(np.int64))
+            read_w = i64(pack_nibbles(read_mm))
+            path_w = i64(pack_nibbles(path_mm))
             kernel = linear_align.polish_full_packed
     timers.count("cells(polish)", int(path_len.sum()) * bw * W)
     cap = _ops_cap(rmax, pmax, bw)
-    w = kernel(read_w, path_w, dev(read_len), dev(path_len), bw,
-               max_steps=rmax + pmax, ops_cap=cap).cpu().numpy()
+
+    def run(rw, pw, rl, pl, *t):
+        return kernel(t[0][rw] if t else rw, pw, rl, pl, bw,
+                      max_steps=rmax + pmax, ops_cap=cap)
+    w = shard_call(run, (read_w, path_w, read_len, path_len) + tbl,
+                   (True,) * 4 + (False,) * len(tbl), device)
     scores, n_ops, touched = w[:, 0], w[:, 1], w[:, 2] != 0
     ops2 = w[:, 3:].astype(np.uint32)
     # unpack 2-bit ops (values beyond n_ops are padding)

@@ -84,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     gen = p.add_argument_group("general")
     gen.add_argument("--device", default="cuda",
                      help="torch device: cuda runs the CUDA kernels, cpu "
-                          "their plain torch versions (default cuda)")
+                          "their plain torch versions; a comma-separated "
+                          "list (cuda:0,cuda:1) splits the device stages' "
+                          "rows over its devices (default cuda)")
     gen.add_argument("-t", "--threads", type=int, default=None,
                      help="batches aligned concurrently (default 3)")
     gen.add_argument("--verbose", action="store_true")

@@ -52,8 +52,6 @@ def from_reference_index(fields: dict) -> MinimizerIndex:
 
 
 def from_reference_config(fields: dict) -> ChainerConfig:
-    """The port's ChainerConfig; the reference's shard_graph_tables (the
-    component sharding, not ported) is left behind."""
     return _build(ChainerConfig, fields)
 
 

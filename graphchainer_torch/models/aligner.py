@@ -26,7 +26,7 @@ uses an X-score cutoff / correctness HMM, src/GraphAlignerBitvectorBanded.h
 best seed is tried (reference seed-cluster retry, src/GraphAligner.h:121-173).
 
 Port of graphchainer_tpu/models/aligner.py (GA mode, and the baseline of
-the CLC rescue) on one torch device: the windows run the carried entry of
+the CLC rescue) on torch devices: the windows run the carried entry of
 the CUDA fragment kernel (ops/frag_kernel, through anchors.run_fragments)
 and the candidates the CUDA polish kernels, each device stage under a
 lock the model shares with its ChainerModel.  --seedless-DP
@@ -40,7 +40,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from graphchainer_torch import constants, native
 from graphchainer_torch.align import polish
@@ -64,6 +63,7 @@ from graphchainer_torch.ops.linear_align import (OP_DEL as OP_DEL_,
                                                  OP_INS as OP_INS_,
                                                  OP_MATCH as OP_MATCH_,
                                                  OP_MISMATCH as OP_MM_)
+from graphchainer_torch.parallel.device import local_devices
 from graphchainer_torch.utils import timers
 from graphchainer_torch.utils.seq import match_masks
 
@@ -228,8 +228,10 @@ def _xdrop_trim(positions, ops: np.ndarray, span):
 
 
 class GraphAlignerModel:
-    """GA-mode aligner over one graph on one torch device ("cuda" runs
-    the hand-written kernels, "cpu" their plain torch versions)."""
+    """GA-mode aligner over one graph on torch devices ("cuda" runs the
+    hand-written kernels on the current card, "cuda:k" on that one, "cpu"
+    their plain torch versions; on a list of devices the windows and the
+    polish take a row block each, the seedless scan the first)."""
 
     def __init__(self, g: AlignmentGraph, index: MinimizerIndex,
                  cfg: Optional[AlignerConfig] = None,
@@ -239,10 +241,8 @@ class GraphAlignerModel:
         self.index = index
         self.cfg = cfg or AlignerConfig()
         self.gx = gx or GraphTensors.build(g)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GraphAlignerModel: device 'cuda' requested "
-                               "but torch.cuda.is_available() is False")
+        self.devices = local_devices(device)
+        self.device = self.devices[0]
         # one batch at a time runs a device stage (see ChainerModel); a
         # ChainerModel hands its own lock to its rescue baseline
         self._device_lock = device_lock or threading.Lock()
@@ -319,7 +319,7 @@ class GraphAlignerModel:
             with self._device_lock, timers.stage("ga_window", len(jobs)):
                 res = run_fragments(self.gx, bnc, bi, seed_shift, req,
                                     rows_arr, S, cfg.max_in, bl,
-                                    self.device, want_state=True,
+                                    self.devices, want_state=True,
                                     want_xcells=True)
             B = bn.shape[1]
             for i, st in enumerate(fresh):
@@ -348,7 +348,7 @@ class GraphAlignerModel:
             with self._device_lock, timers.stage("ga_window", len(cjobs)):
                 res = run_fragments(self.gx, bnc, bi, shifts_arr, req,
                                     rows_arr, S, cfg.max_in, bl,
-                                    self.device, carry_in=carry,
+                                    self.devices, carry_in=carry,
                                     want_state=True, want_xcells=True)
             for i, st in enumerate(carried):
                 per_state[id(st)] = (res, i, bn[i], shifts_arr[i],
@@ -631,7 +631,7 @@ class GraphAlignerModel:
                                                  len(polish_reads)):
                 outcomes = polish.polish_batch(polish_reads, polish_paths,
                                                bw=cfg.polish_band_words,
-                                               device=self.device)
+                                               device=self.devices)
             for (ri, ci), oc in zip(refs, outcomes):
                 scored[(ri, ci)] = oc
             if cfg.bubble_repair:

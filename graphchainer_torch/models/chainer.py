@@ -21,6 +21,12 @@ reads:
                     auto_compare_dense on a dense graph) are aligned again
                     by the whole-read GA baseline (models/aligner.py), and
                     the better alignment is kept
+
+Stages 3 and 7 run on the model's devices: one device, or a list of
+them, each taking a row block of the stage's rows (parallel/device.py);
+stage 5 runs its whole batch on the first of them (its cost is per
+event, not per read: ops/chain_scan.py); with shard_graph_tables the fragment DP runs each fragment on the device
+that holds its component's table block (parallel/sharded_graph.py).
 """
 from __future__ import annotations
 
@@ -29,7 +35,6 @@ from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from graphchainer_torch import constants, native
 from graphchainer_torch.align import polish
@@ -42,14 +47,16 @@ from graphchainer_torch.ops.chain_scan import chain_scan
 from graphchainer_torch.graph.alignment_graph import AlignmentGraph
 from graphchainer_torch.graph.mpc import MPCIndex
 from graphchainer_torch.index.minimizer import MinimizerIndex
+from graphchainer_torch.parallel.device import local_devices
+from graphchainer_torch.parallel.sharded_graph import (build_sharded_tables,
+                                                       plan_component_shards)
 from graphchainer_torch.utils import timers
 from graphchainer_torch.utils.seq import match_masks
 
 
 @dataclass
 class ChainerConfig:
-    """graphchainer_tpu's ChainerConfig, with its defaults (the component
-    sharding of the graph tables is not ported)."""
+    """graphchainer_tpu's ChainerConfig, with its defaults."""
     colinear_split_len: int = constants.DEFAULT_COLINEAR_SPLIT_LEN
     colinear_split_gap: int = constants.DEFAULT_COLINEAR_SPLIT_GAP
     colinear_gap: int = constants.DEFAULT_COLINEAR_GAP
@@ -77,6 +84,10 @@ class ChainerConfig:
     bubble_repair: bool = True         # native corridor re-polish
     corridor_band: int = 16
     corridor_passes: int = 1
+    # split the node tables by connected component over the model's
+    # devices, each fragment run where its component's block lives
+    # (parallel/sharded_graph.py); ignored on a single device
+    shard_graph_tables: bool = False
 
 
 @dataclass
@@ -101,8 +112,10 @@ class ReadAlignment:
 
 
 class ChainerModel:
-    """CLC aligner over one graph on one torch device ("cuda" runs the
-    hand-written kernels, "cpu" their plain torch versions)."""
+    """CLC aligner over one graph on torch devices ("cuda" runs the
+    hand-written kernels on the current card, "cuda:k" on that one, "cpu"
+    their plain torch versions; a list of devices, which may repeat one,
+    splits the fragment DP and the polish into a row block a device)."""
 
     def __init__(self, g: AlignmentGraph, mpc: MPCIndex,
                  index: MinimizerIndex, cfg: Optional[ChainerConfig] = None,
@@ -113,10 +126,14 @@ class ChainerModel:
         self.index = index
         self.cfg = cfg or ChainerConfig()
         self.gx = gx or GraphTensors.build(g)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ChainerModel: device 'cuda' requested but "
-                               "torch.cuda.is_available() is False")
+        self.devices = local_devices(device)
+        self.device = self.devices[0]
+        if (self.cfg.shard_graph_tables and len(self.devices) > 1
+                and (self.gx.shards is None
+                     or self.gx.shards[0] != self.devices)):
+            plan = plan_component_shards(g, len(self.devices))
+            self.gx.shards = (self.devices, plan, build_sharded_tables(
+                self.gx, plan, self.devices))
         self._lock = threading.Lock()
         # one batch at a time runs a device stage: those stages are chains
         # of small torch ops, each of which drops and retakes the
@@ -149,7 +166,7 @@ class ChainerModel:
                 self._escalated = ChainerModel(
                     self.g, self.mpc, self.index, wide,
                     file_seeds=self.file_seeds, seed_fn=self.seed_fn,
-                    gx=self.gx, device=self.device)
+                    gx=self.gx, device=self.devices)
                 self._escalated._device_lock = self._device_lock
             return self._escalated
 
@@ -165,7 +182,7 @@ class ChainerModel:
                     AlignerConfig(
                         seed_density=self.cfg.seed_density,
                         polish_band_words=self.cfg.polish_band_words),
-                    gx=self.gx, device=self.device,
+                    gx=self.gx, device=self.devices,
                     device_lock=self._device_lock)
             return self._baseline
 
@@ -327,7 +344,7 @@ class ChainerModel:
         with self._device_lock, timers.stage("frag_kernel", len(jobs)):
             res = run_fragments(self.gx, band_nodes_cat, band_in,
                                 seed_shift, req, rows, S, cfg.max_in,
-                                band_level, self.device)
+                                band_level, self.devices)
         # DP cells = band slots x read rows per fragment
         timers.count("cells(frag)", int(rows.astype(np.int64).sum())
                      * band_nodes_cat.shape[1])
@@ -411,7 +428,7 @@ class ChainerModel:
                     polish_reads, polish_paths, bw=cfg.polish_band_words,
                     table=(None if dev_tbl is None else
                            (dev_tbl, np.asarray(polish_refs, np.int64))),
-                    device=self.device)
+                    device=self.devices)
             for ri, oc in zip(polish_refs, outcomes):
                 out[ri].score = oc.score
                 out[ri].ops = oc.ops

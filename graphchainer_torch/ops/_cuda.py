@@ -8,12 +8,15 @@ into graphchainer_torch/_build/ under a name keyed by a hash of the
 sources, behind a file lock, so concurrent processes build it once.
 
 Each wrapper counts the launches of its kernel here (thread-safe: the
-pipeline runs batches from a thread pool).  A run resets the counts,
-drives the main path and reads them back to show the path went through
-the kernels.
+pipeline runs batches from a thread pool), in total and under the shard
+of a multi-device stage that made them (parallel/device.run_shards sets
+it per thread), and launches on its tensors' device.  A run resets the
+counts, drives the main path and reads them back to show the path went
+through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -39,22 +42,53 @@ _count_lock = threading.Lock()
 _launches = {"frag_core": 0, "frag_core_carried": 0, "frag_wide": 0,
              "polish_core": 0, "polish_walk": 0, "polish_core_any": 0,
              "polish_walk_any": 0}
+_by_shard: dict = {}            # shard index -> {kernel: launches}
+_shard = threading.local()      # .index: this thread's current shard
 
 
 def count_launch(name: str) -> None:
     with _count_lock:
         _launches[name] += 1
+        per = _by_shard.setdefault(getattr(_shard, "index", 0),
+                                   dict.fromkeys(_launches, 0))
+        per[name] += 1
 
 
 def reset_launches() -> None:
     with _count_lock:
         for k in _launches:
             _launches[k] = 0
+        _by_shard.clear()
 
 
 def launches() -> dict:
     with _count_lock:
         return dict(_launches)
+
+
+def launches_by_shard() -> dict:
+    """{shard index: {kernel: launches}} since the last reset; a
+    single-device stage counts under shard 0."""
+    with _count_lock:
+        return {k: dict(v) for k, v in sorted(_by_shard.items())}
+
+
+@contextlib.contextmanager
+def shard(index: int):
+    """Count this thread's launches under shard `index` inside."""
+    prev = getattr(_shard, "index", 0)
+    _shard.index = index
+    try:
+        yield
+    finally:
+        _shard.index = prev
+
+
+def device_of(t):
+    """t's CUDA device as the current one: a launch (and the shared-memory
+    attribute it sets) goes to the device its tensors are on."""
+    import torch
+    return torch.cuda.device(t.device)
 
 
 def _nvcc() -> str:

@@ -8,6 +8,12 @@ The events come from the host packer align/chaining.batch_arrays_cols
 (with anchor_kmask=True); the result is bit-identical to
 align/chaining.chain_oracle, (value, id) ties included.
 
+The whole batch runs on one device, where JAX shards the read axis over
+every device (ops/chain_scan.py:115-133): the sweep's cost is the host's
+enqueueing of a few dozen small ops an event, whatever the number of
+reads, so a row block a device would enqueue every event's ops once per
+device and multiply the stage's time by the device count.
+
 Scores combine as val * (A + 2) + (pred + 1); the reference packs that in
 int32, so the host guard below rejects batches whose read coverage would
 overflow it, although this port computes in int64.
@@ -18,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from graphchainer_torch.parallel.device import upload
 
 EV_SAME_START = 0
 EV_SAME_END = 1
@@ -49,14 +57,12 @@ def chain_scan(x, y, valid, ev_type, ev_anchor, ev_k, a_kmask, ev_group,
         raise ValueError(
             f"chain_scan int32 packing overflow: read coverage {max_cov} x "
             f"(A={A} + 2) >= 2^31; reduce the anchor cap or split the read")
-    dev = torch.device(device)
+    def t(a, dtype=np.int64):
+        return np.ascontiguousarray(a, dtype=dtype)
 
-    def t(a, dtype=torch.int64):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(dev, dtype)
-
-    c_val, c_pred = _chain_scan(
-        t(x), t(y), t(valid, torch.bool), t(ev_type), t(ev_anchor), t(ev_k),
-        t(a_kmask.astype(np.int64)), t(ev_group))
+    c_val, c_pred = _chain_scan(*upload(
+        (t(x), t(y), t(valid, np.bool_), t(ev_type), t(ev_anchor), t(ev_k),
+         t(a_kmask), t(ev_group)), torch.device(device)))
     return ChainScanResult(c_val=c_val.cpu().numpy(),
                            c_pred=c_pred.cpu().numpy())
 

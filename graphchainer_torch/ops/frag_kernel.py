@@ -111,12 +111,14 @@ def frag_core_cuda(node_eq, node_len, band_nodes, band_in, band_level,
     out = _result_views(_result_buffer(F, B, S, band_nodes.device), F, B, S)
     if F:
         L = _cuda.lib()
-        rc = L.frag_core_launch(
-            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
-            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
-            req.data_ptr(), rows.data_ptr(), node_eq.shape[0], F, B, S,
-            max_in, n_levels, *(x.data_ptr() for x in out[:4]),
-            _cuda.stream_ptr(band_nodes))
+        with _cuda.device_of(band_nodes):
+            rc = L.frag_core_launch(
+                node_eq.data_ptr(), node_len.data_ptr(),
+                band_nodes.data_ptr(), band_in.data_ptr(),
+                band_level.data_ptr(), seed_shift.data_ptr(),
+                req.data_ptr(), rows.data_ptr(), node_eq.shape[0], F, B, S,
+                max_in, n_levels, *(x.data_ptr() for x in out[:4]),
+                _cuda.stream_ptr(band_nodes))
         _cuda.check(rc, "frag_core")
         _cuda.count_launch("frag_core")
     return out
@@ -150,13 +152,15 @@ def frag_core_carried_cuda(node_eq, node_len, band_nodes, band_in,
         null = 0
         cs, ch, cn = ((c.data_ptr() for c in carry) if carry is not None
                       else (null, null, null))
-        rc = L.frag_core_carried_launch(
-            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
-            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
-            req.data_ptr(), rows.data_ptr(), cs, ch, cn,
-            node_eq.shape[0], F, B, S, max_in, n_levels, int(per_slot),
-            *(x.data_ptr() if x is not None else null for x in out),
-            _cuda.stream_ptr(band_nodes))
+        with _cuda.device_of(band_nodes):
+            rc = L.frag_core_carried_launch(
+                node_eq.data_ptr(), node_len.data_ptr(),
+                band_nodes.data_ptr(), band_in.data_ptr(),
+                band_level.data_ptr(), seed_shift.data_ptr(),
+                req.data_ptr(), rows.data_ptr(), cs, ch, cn,
+                node_eq.shape[0], F, B, S, max_in, n_levels, int(per_slot),
+                *(x.data_ptr() if x is not None else null for x in out),
+                _cuda.stream_ptr(band_nodes))
         _cuda.check(rc, "frag_core (carried entry)")
         _cuda.count_launch("frag_core_carried")
     return out
@@ -295,16 +299,18 @@ def frag_wide_cuda(node_eq, node_len, band_nodes, band_in, band_level,
         T = max(2, min(S, WIDE_THREADS))
         scratch = torch.empty((F, T, B, 4), dtype=i32, device=dev)
         L = _cuda.lib()
-        rc = L.frag_wide_launch(
-            node_eq.data_ptr(), node_len.data_ptr(), band_nodes.data_ptr(),
-            band_in.data_ptr(), band_level.data_ptr(), seed_shift.data_ptr(),
-            req.data_ptr(), rows.data_ptr(),
-            0 if seed_base is None else seed_base.data_ptr(),
-            N2, F, B, S, max_in, n_levels, int(full_start), T,
-            scratch.data_ptr(), out.best_score.data_ptr(),
-            out.best_slot.data_ptr(), out.best_col.data_ptr(),
-            out.best_in.data_ptr(), out.end_score.data_ptr(),
-            out.end_col.data_ptr(), _cuda.stream_ptr(band_nodes))
+        with _cuda.device_of(band_nodes):
+            rc = L.frag_wide_launch(
+                node_eq.data_ptr(), node_len.data_ptr(),
+                band_nodes.data_ptr(), band_in.data_ptr(),
+                band_level.data_ptr(), seed_shift.data_ptr(),
+                req.data_ptr(), rows.data_ptr(),
+                0 if seed_base is None else seed_base.data_ptr(),
+                N2, F, B, S, max_in, n_levels, int(full_start), T,
+                scratch.data_ptr(), out.best_score.data_ptr(),
+                out.best_slot.data_ptr(), out.best_col.data_ptr(),
+                out.best_in.data_ptr(), out.end_score.data_ptr(),
+                out.end_col.data_ptr(), _cuda.stream_ptr(band_nodes))
         _cuda.check(rc, "frag_wide")
         _cuda.count_launch("frag_wide")
     return out

@@ -96,11 +96,12 @@ def polish_core_cuda(planes_t, path_t, read_len, path_len, bw: int):
     if R and P:
         L = _cuda.lib()
         launch = L.polish_core_launch if warp else L.polish_core_any_launch
-        rc = launch(
-            planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
-            path_len.data_ptr(), R, RW, P, bw, dvp.data_ptr(),
-            dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
-            _cuda.stream_ptr(planes_t))
+        with _cuda.device_of(planes_t):
+            rc = launch(
+                planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
+                path_len.data_ptr(), R, RW, P, bw, dvp.data_ptr(),
+                dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
+                _cuda.stream_ptr(planes_t))
         name = "polish_core" if warp else "polish_core_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)
@@ -176,11 +177,13 @@ def polish_walk_cuda(dvp, dvn, dsb, dbase, planes_t, path_t, read_len,
     out = torch.empty((R, 3 + ops_cap // 16), dtype=torch.int64,
                       device=dvp.device)
     if R:
-        rc = _cuda.lib().polish_walk_any_launch(
-            dvp.data_ptr(), dvn.data_ptr(), dsb.data_ptr(), dbase.data_ptr(),
-            planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
-            path_len.data_ptr(), R, RW, P, bw, max_steps, ops_cap,
-            out.data_ptr(), _cuda.stream_ptr(dvp))
+        with _cuda.device_of(dvp):
+            rc = _cuda.lib().polish_walk_any_launch(
+                dvp.data_ptr(), dvn.data_ptr(), dsb.data_ptr(),
+                dbase.data_ptr(),
+                planes_t.data_ptr(), path_t.data_ptr(), read_len.data_ptr(),
+                path_len.data_ptr(), R, RW, P, bw, max_steps, ops_cap,
+                out.data_ptr(), _cuda.stream_ptr(dvp))
         name = "polish_walk" if entry == "warp" else "polish_walk_any"
         _cuda.check(rc, name)
         _cuda.count_launch(name)

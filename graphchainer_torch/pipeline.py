@@ -7,9 +7,13 @@ OptimalAlignerModel), with GFA or .vg input: a reader thread streams
 reads into batches, a thread pool runs the model's align_batch on up to
 `inflight` batches at once (host stages of one batch overlap device work
 of another), and the main thread writes GAM / GAF / JSON alignments and
-corrected reads and sums the statistics in numpy.  With num_processes P >
-1 (parallel/multihost.py) each process takes every P-th read, writes
-".partI" files and the statistics are summed over all processes.
+corrected reads and sums each batch's statistics
+(parallel/collectives.merge_stats).  "cuda" takes the current card;
+a comma-separated list of devices, a row block of the fragment DP and
+of the polish a device (parallel/device.py).
+With num_processes P > 1 (parallel/multihost.py) each process takes
+every P-th read and, with "cuda", the card I % count alone, writes
+".partI" files, and the statistics are summed over all processes.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from graphchainer_torch.index.minimizer import MinimizerIndex, build_index
 from graphchainer_torch.io import fastq, gaf, gam
 from graphchainer_torch.io.gfa import load_gfa
 from graphchainer_torch.parallel import multihost
+from graphchainer_torch.parallel.collectives import merge_stats
+from graphchainer_torch.parallel.device import local_devices, process_device
 from graphchainer_torch.utils import timers
 from graphchainer_torch.models.aligner import (AlignerConfig,
                                                GraphAlignerModel)
@@ -177,6 +183,8 @@ def align_reads(params: PipelineParams) -> AlignmentStats:
 
 def _align_reads(params: PipelineParams) -> AlignmentStats:
     t0 = time.time()
+    devices = local_devices(process_device(
+        params.device, params.process_id, params.num_processes))
     try:
         g = load_graph(params.graph_file,
                        allow_cycles=(params.mode == "ga"))
@@ -221,12 +229,12 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
                           dp_restart_stride=params.dp_restart_stride,
                           **({"band_slots": params.bandwidth}
                              if params.bandwidth else {})),
-            device=params.device)
+            device=devices)
     elif params.mode == "optimal":
         model = OptimalAlignerModel(
             g, index,
             OptimalConfig(polish_band_words=params.chainer.polish_band_words),
-            device=params.device)
+            device=devices[0])
     else:
         mpc = get_or_build_mpc(g, params.mpc_index_file)
         file_seeds = seed_fn = None
@@ -243,7 +251,7 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
             seed_fn = lambda name, seq: seeder.get_seeds(seq)  # noqa: E731
         model = ChainerModel(g, mpc, index, params.chainer,
                              file_seeds=file_seeds, seed_fn=seed_fn,
-                             device=params.device)
+                             device=devices)
     stats = AlignmentStats()
 
     ecalc = None
@@ -338,7 +346,7 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
                 if c:
                     clip_f.write(f">{aln.name}\n{c}\n")
         if rows:
-            totals += np.asarray(rows, dtype=np.int64).sum(axis=0)
+            totals += merge_stats(np.asarray(rows, dtype=np.int64), devices)
 
     try:
         while True:

@@ -7,6 +7,10 @@ error drawn from one source-to-sink path.  build_bench_graph is a copy of
 bench.py:165-200, so this package does not import bench.py (which pulls
 in jax).
 
+component_chains_workload is the multi-component graph of the
+component-sharded tables' test, and fusion_workload the fusion finder's
+two-gene input.
+
 polish_hard_pairs makes the (read, path) pairs that the polish kernels
 must survive, for the CPU tests (small) and the smoke run (full size);
 frag_hard_batch the fragment batch that the fragment DP must survive,
@@ -88,6 +92,76 @@ def bench_workload(graph_bp: int = 60_000, n_reads: int = 960,
     reads = simulate_reads(path_seq, n_reads, read_len, seed=11,
                            error_rate=0.10, len_std=read_len // 10)
     return g, mpc, index, path_seq, reads, build_s
+
+
+def component_chains_workload(reads_per_component: int = 1):
+    """The multi-component graph of tests/test_multichip.py:191-278 (its
+    generator, copied): five disjoint chains of twelve 60-120 bp segments,
+    each followed by a two-way SNP (ten strand components), from
+    default_rng(17); its indices (k=15, w=10) and reads_per_component
+    reads of ~500 bp at 8% error from each chain's path, those of the odd
+    chains reverse-complemented (so that the reads reach components of
+    both strands).  Returns (g, mpc, index, reads)."""
+    from graphchainer_torch.utils.seq import revcomp
+    rng = np.random.default_rng(17)
+    bg = Bigraph()
+    comp_paths = []
+    for c in range(5):
+        prev = None
+        path = []
+        for i in range(12):
+            sp = bg.add_segment(f"c{c}s{i}", "".join(rng.choice(
+                list("ACGT"), int(rng.integers(60, 120)))))
+            if prev is not None:
+                bg.links.append((prev, False, sp, False, 0))
+            a = bg.add_segment(f"c{c}a{i}", str(rng.choice(list("ACGT"))))
+            b = bg.add_segment(f"c{c}b{i}", str(rng.choice(list("ACGT"))))
+            bg.links.append((sp, False, a, False, 0))
+            bg.links.append((sp, False, b, False, 0))
+            path.append(bg.seqs[sp])
+            path.append(bg.seqs[a])
+            prev = a
+        comp_paths.append("".join(path))
+    g = build_alignment_graph(bg)
+    reads = []
+    for c, ps in enumerate(comp_paths):
+        reads += [(f"{n}_c{c}", revcomp(s) if c % 2 else s) for n, s in
+                  simulate_reads(ps, reads_per_component, 500, seed=100 + c,
+                                 error_rate=0.08, len_std=80)]
+    return g, build_mpc(g), build_index(g, k=15, w=10), reads
+
+
+def fusion_workload(tmpdir: str):
+    """The two-gene input of tests/test_cli_tools.py::test_fusion_finder:
+    genes A and B of 800 random bases (default_rng(12345), the tests' rng
+    fixture) as two GFA segments, a read fusing A[100:400] with
+    B[200:500] and one from A alone, the putative pair and one transcript
+    alignment a gene (gene:<id> in its name).  Returns fusion-finder's
+    input arguments."""
+    from graphchainer_torch.io import vg_wire as w
+    from graphchainer_torch.io.gam import GamWriter
+    rng = np.random.default_rng(12345)
+    gene_a = "".join(rng.choice(list("ACGT"), 800))
+    gene_b = "".join(rng.choice(list("ACGT"), 800))
+    files = {k: os.path.join(tmpdir, k) for k in
+             ("g.gfa", "r.fa", "put.txt", "t.gam")}
+    with open(files["g.gfa"], "w") as fh:
+        fh.write(f"S\tga\t{gene_a}\nS\tgb\t{gene_b}\n")
+    with open(files["r.fa"], "w") as fh:
+        fh.write(f">fused\n{gene_a[100:400] + gene_b[200:500]}\n"
+                 f">normal\n{gene_a[150:650]}\n")
+    with open(files["put.txt"], "w") as fh:
+        fh.write("GENEA GENEB 5\n")
+    gw = GamWriter(files["t.gam"])
+    for i, (gene, seq, node) in enumerate((("GENEA", gene_a, "ga"),
+                                           ("GENEB", gene_b, "gb"))):
+        gw.write(w.alignment(seq, w.path([w.mapping(
+            w.position(i + 1, 0, False, name=node), [w.edit(800, 800)],
+            1)]), f"tx{i + 1}_gene:{gene}_x"))
+    gw.close()
+    return ["fusion-finder", "-g", files["g.gfa"], "--putative",
+            files["put.txt"], "--transcripts", files["t.gam"], "-f",
+            files["r.fa"], "--min-fusion-len", "100"]
 
 
 def frag_hard_batch(seed: int, F: int = 256, B: int = 8, max_in: int = 4,

@@ -291,6 +291,10 @@ _PORT_MODULES = [
     "graphchainer_torch.graph.mpc", "graphchainer_torch.graph.simulate",
     "graphchainer_torch.index.minimizer", "graphchainer_torch.index.mem",
     "graphchainer_torch.parallel", "graphchainer_torch.parallel.multihost",
+    "graphchainer_torch.parallel.device",
+    "graphchainer_torch.parallel.collectives",
+    "graphchainer_torch.parallel.sharded_graph",
+    "graphchainer_torch.parallel.mesh", "graphchainer_torch.tools",
     "graphchainer_torch.workload", "chip_smoke",
 ]
 

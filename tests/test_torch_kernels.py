@@ -467,6 +467,60 @@ def test_align_batch_cuda_matches_cpu(cuda_device):
             np.testing.assert_array_equal(x.ops, y.ops)
 
 
+@pytest.mark.gpu
+def test_align_batch_two_shards_of_one_card(cuda_device):
+    """The model on two shards of one card (a device list may repeat a
+    device): one shard's alignments, each shard launching every kernel
+    of the main path."""
+    from graphchainer_torch.models.chainer import ChainerModel
+    from test_torch_common import slice_case_port
+    g, mpc, index, _, reads = slice_case_port()
+    card = torch.device("cuda", torch.cuda.current_device())
+    one = ChainerModel(g, mpc, index, device=card).align_batch(reads[1:])
+    _cuda.reset_launches()
+    two = ChainerModel(g, mpc, index, device=(card, card)).align_batch(
+        reads[1:])
+    per = _cuda.launches_by_shard()
+    for shard in (0, 1):
+        assert min(per[shard][k] for k in ("frag_core", "polish_core",
+                                           "polish_walk")) > 0, per
+    for x, y in zip(one, two):
+        np.testing.assert_array_equal(np.asarray(x.positions),
+                                      np.asarray(y.positions))
+        assert x.score == y.score
+        np.testing.assert_array_equal(x.ops, y.ops)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_their_tensors_device(cuda_device):
+    """A kernel runs on the card its tensors are on, whatever the current
+    device: frag_core and both polish kernels on the second card, called
+    with the first card current, equal their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    args, kw = frag_case("beff")
+    dev_args = [a.contiguous().to(other) for a in args]
+    ref = frag_align._frag_core_t(*frag_align.lane_major(
+        *dev_args[:4], dev_args[5], dev_args[6], dev_args[7], dev_args[4]),
+        **kw)
+    planes_t, path_t, rl, pl = (t64(a).to(other) for a in mixed_batch())
+    dump_ref = linear_align._polish_core_t(planes_t, path_t, rl, pl, 8)
+    walk_ref = linear_align._polish_walk_t(*dump_ref, planes_t, path_t, rl,
+                                           pl, 8, 1024, 512)
+    with torch.cuda.device(0):
+        got = frag_kernel.frag_core(*dev_args, **kw)
+        dump = polish_kernel.polish_core(planes_t, path_t, rl, pl, 8)
+        walk = polish_kernel.polish_walk(*dump, planes_t, path_t, rl, pl, 8,
+                                         max_steps=1024, ops_cap=512)
+    torch.cuda.synchronize(other)
+    assert got.best_score.device == other and walk.device == other
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g.long().cpu(), r[0].cpu())
+    assert torch.equal(u32(dump[0]).cpu(), dump_ref[0].cpu())
+    assert torch.equal(walk.cpu(), walk_ref.cpu())
+
+
 def test_launch_counts_survive_thread_contention():
     """The pipeline counts launches from a thread pool: no update is lost
     with more threads than cores and a short switch interval."""

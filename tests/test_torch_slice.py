@@ -4,7 +4,9 @@ version) against graphchainer_tpu's ChainerModel at the default
 configuration of both — band escalation, then the GA-baseline rescue, for
 reads above a normalised edit distance of 0.35.  Per read, positions,
 ops, score, n_anchors and n_chained are equal and the GAF lines are
-byte-equal."""
+byte-equal.  The JAX side of the model comparison is recorded
+(tests/torch_fixtures/slice_model.json): its run compiles the JAX
+model's shapes, ~100 s on a loaded CPU."""
 import dataclasses
 import functools
 import os
@@ -14,7 +16,6 @@ import sys
 import numpy as np
 import pytest
 
-from graphchainer_tpu.io import gaf as JG
 from graphchainer_tpu.io.gfa import save_gfa
 from graphchainer_tpu.models import chainer as JC
 from graphchainer_torch import cli, convert
@@ -23,8 +24,8 @@ from graphchainer_torch.models import chainer as TC
 from graphchainer_torch.utils import timers
 
 from test_mpc import random_dag_bigraph
-from test_torch_common import (REPO, load_fixture, output_record,
-                               slice_case, slice_case_port)
+from test_torch_common import (REPO, aln_record, load_fixture,
+                               output_record, slice_case, slice_case_port)
 
 
 def slice_reads():
@@ -36,54 +37,51 @@ def slice_reads():
 
 
 @functools.lru_cache(maxsize=None)
-def both_runs():
-    """(jax alignments, torch alignments, torch counters)."""
-    g, mpc, index, _, _ = slice_case()
-    reads = slice_reads()
-    jcfg = JC.ChainerConfig()
-    ja = JC.ChainerModel(g, mpc, index, jcfg).align_batch(reads)
+def port_run():
+    """(torch alignments, torch counters) of slice_reads() at the JAX
+    package's default configuration, carried across by convert.py."""
     timers.reset()
     tg, tmpc, tindex = slice_case_port()[:3]
-    tcfg = convert.from_reference_config(dataclasses.asdict(jcfg))
+    tcfg = convert.from_reference_config(
+        dataclasses.asdict(JC.ChainerConfig()))
     assert tcfg == TC.ChainerConfig()
     ta = TC.ChainerModel(tg, tmpc, tindex, tcfg,
-                         device="cpu").align_batch(reads)
-    return ja, ta, timers.counters()
+                         device="cpu").align_batch(slice_reads())
+    return ta, timers.counters()
+
+
+def jax_run():
+    """The JAX package's run of slice_reads(), recorded: {alignments:
+    [aln_record], gaf: {"False" / "True": [each alignment's GAF line]}}."""
+    return load_fixture("slice_model")["slice"]
 
 
 def test_align_batch_matches_jax():
-    ja, ta, _ = both_runs()
-    assert len(ja) == len(ta) == len(slice_reads())
-    for a, b in zip(ja, ta):
-        assert a.name == b.name
-        np.testing.assert_array_equal(np.asarray(a.positions),
-                                      np.asarray(b.positions),
-                                      err_msg=a.name)
-        assert (a.ops is None) == (b.ops is None), a.name
-        if a.ops is not None:
-            np.testing.assert_array_equal(a.ops, b.ops, err_msg=a.name)
-        assert (a.score, a.n_anchors, a.n_chained, a.n_seeds) == \
-            (b.score, b.n_anchors, b.n_chained, b.n_seeds), a.name
+    want, (ta, _) = jax_run()["alignments"], port_run()
+    assert len(want) == len(ta) == len(slice_reads())
+    for a, b in zip(want, ta):
+        assert aln_record(b) == a, a["name"]
     assert all(not b.failed for b in ta)
 
 
 @pytest.mark.parametrize("merge_mm", [False, True])
 def test_gaf_lines_match_jax(merge_mm):
-    g, tg = slice_case()[0], slice_case_port()[0]
-    ja, ta, _ = both_runs()
-    for a, b in zip(ja, ta):
-        assert JG.gaf_line(g, a, cigar_merge_mm=merge_mm) == \
-            TG.gaf_line(tg, b, cigar_merge_mm=merge_mm)
+    tg = slice_case_port()[0]
+    ta, _ = port_run()
+    assert [TG.gaf_line(tg, b, cigar_merge_mm=merge_mm) for b in ta] == \
+        jax_run()["gaf"][str(merge_mm)]
 
 
 def test_noisy_read_escalates():
     """The 50%-error read runs the band escalation (B = 96, max_in = 12),
     stays above the threshold and is rescued by the GA baseline, and its
     result still equals the JAX package's."""
-    ja, ta, counters = both_runs()
+    ta, counters = port_run()
     assert counters["escalated_reads"] == counters["rescued_reads"] == 1
     assert counters["cells(frag)"] > 0
-    assert ta[0].name == "noisy" and ja[0].score == ta[0].score
+    want = jax_run()["alignments"][0]
+    assert ta[0].name == want["name"] == "noisy"
+    assert ta[0].score == want["score"]
     assert ta[0].score < 0.35 * len(ta[0].seq)
 
 
@@ -91,7 +89,6 @@ def test_cli_gaf_matches_jax(tmp_path):
     """python -m graphchainer_torch writes the GAF lines of the JAX
     package's alignments (run with jax blocked in the child; three of the
     reads, single-threaded torch, to keep the child light)."""
-    g = slice_case()[0]
     reads = slice_reads()[1:]
     rng = np.random.default_rng(2)
     save_gfa(random_dag_bigraph(rng, n_seg=24, p_edge=0.15, max_len=300),
@@ -114,9 +111,9 @@ def test_cli_gaf_matches_jax(tmp_path):
     assert r.returncode == 0, r.stderr
     assert f"Input reads: {len(reads)}" in r.stdout
     names = {n for n, _ in reads}
-    ja, _, _ = both_runs()
-    want = sorted(JG.gaf_line(g, a, cigar_merge_mm=False) for a in ja
-                  if a.name in names and not a.failed)
+    jr = jax_run()
+    want = sorted(line for a, line in zip(jr["alignments"], jr["gaf"]["False"])
+                  if a["name"] in names and a["positions"])
     got = sorted(out.read_text().splitlines())
     assert got == [w for w in want if w] and len(got) == len(reads)
 

@@ -167,9 +167,42 @@ def seeds_cli():
     return {case: _cli(seeds_cli_case, case) for case in SEED_CLI_CASES}
 
 
+def slice_model():
+    """ChainerModel.align_batch at the default config on slice_reads()
+    (tests/test_torch_slice.py), with each alignment's GAF line with and
+    without merged mismatches, and on its three 10%-error reads alone
+    (tests/test_torch_multidevice.py)."""
+    from graphchainer_tpu.io import gaf as JG
+    from graphchainer_tpu.models import chainer as JC
+    from test_torch_common import aln_record, slice_case
+    from test_torch_slice import slice_reads
+    g, mpc, index, _, _ = slice_case()
+    a = JC.ChainerModel(g, mpc, index, JC.ChainerConfig()).align_batch(
+        slice_reads())
+    three = JC.ChainerModel(g, mpc, index, JC.ChainerConfig()).align_batch(
+        slice_reads()[1:])
+    return dict(
+        slice=dict(alignments=[aln_record(x) for x in a],
+                   gaf={str(m): [JG.gaf_line(g, x, cigar_merge_mm=m)
+                                 for x in a] for m in (False, True)}),
+        three_reads=[aln_record(x) for x in three])
+
+
+def fusion_finder():
+    """python -m graphchainer_tpu.tools fusion-finder on
+    tests/test_torch_tools.fusion_case's inputs: its output files."""
+    from graphchainer_tpu import tools as JT
+    from test_torch_tools import fusion_case, fusion_record
+    with _tmp() as td:
+        argv, outs = fusion_case(Path(td))
+        assert JT.main(argv) == 0
+        return fusion_record(outs)
+
+
 FIXTURES = {f.__name__: f for f in (
     seedless_scan, seedless_model, seedless_cli, full_start, optimal_model,
-    optimal_cli, polish_any_band, polish_cli, seeds_model, seeds_cli)}
+    optimal_cli, polish_any_band, polish_cli, seeds_model, seeds_cli,
+    slice_model, fusion_finder)}
 
 
 def record(name: str) -> dict:
