@@ -46,9 +46,21 @@ Phases (any failure raises and exits non-zero before the result line):
      the carried entry); then the whole bench pass from a polish band of
      12 words (ramp 12 -> 24 -> 48, the run-time-bw entries), its polish
      stage printed beside the default pass's;
-  4. a real-size graph: 128 reads on a 5 Mbp graph from the same
-     generator, then its MEM index (suffix array built, saved as
-     .sa.npz and loaded back equal) and the 128 reads with MEM seeds;
+  4. chromosome scale: the same generator's graph at a 20 Mbp backbone
+     (SCALE_r05.json's: 40.4 Mbp over both strands, 2.46 M split nodes),
+     built once: 128 reads of ~3 kbp, its MEM index (suffix array built,
+     saved as .sa.npz and loaded back equal) and the 128 reads with MEM
+     seeds; python -m graphchainer_torch on the card on 48 reads of
+     scripts/sustained_test.py's mix (16 each of ~1.5, ~3 and ~9 kbp),
+     its GAF lines and counts equal to the JAX package's line for line
+     (tests/torch_fixtures/scale_mix.json); scripts/scale_test.py's
+     1920 reads of ~3 kbp through align_batch (6 workers, batches of 64,
+     one warm and one timed pass) in the accuracy bounds, the main
+     path's kernels launched, peak device memory and host RSS printed;
+     and a batch of 128 reads of the ~9 kbp class, whose stitched paths
+     (P up to 16384) the polish fill and walk take at bw 8 and 32,
+     exact against their plain versions and timed with their bounds
+     (after phase 6, the plain versions running in the pool);
   5. GA mode (GraphAlignerModel on cuda) on the golden_cyclic set (36
      reads lapping cyclic graphs) and the CLC path with its GA rescue at
      the default config on the golden_badread set (80 reads), each held
@@ -110,10 +122,17 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-BIG_GRAPH_BP = 5_000_000     # phase 4: about an MHC-region graph
+CHROM_BP = 20_000_000        # phase 4: the backbone of SCALE_r05.json
+                             # (40.4 Mbp over both strands)
+CHROM_READS = 1920           # scripts/scale_test.py's reads there
+MIX_COUNTS = (16, 16, 16)    # the sustained mix's reads a length class in
+                             # tests/torch_fixtures/scale_mix.json
+LONG_READS = 128             # the ~9 kbp class's batch, timed polish
+LONG_BANDS = (8, 32)         # its polish widths timed: start and widest
 ACC_ALIGNED_MIN = 0.99       # aligned_fraction lower bound
 ACC_NORM_ED_MAX = 0.095      # mean_norm_edit_distance upper bound (the
                              # reference package recorded 0.0864 here)
@@ -430,7 +449,7 @@ def check_polish(pairs, bw, dev, label, plain, timed=False):
                 f"rows differ from the plain version (max abs diff {e})")
         n_ok.append(int((want[:, 1] >= 0).sum()))
     out = dict(bw=bw, label=label, entry=entry, fill_plain_ms=ref["fill_ms"],
-               walk_plain_ms=ref["walk_ms"])
+               walk_plain_ms=ref["walk_ms"], P=P)
     timing = ""
     if timed:
         out["fill_ms"] = cuda_ms(
@@ -1381,9 +1400,9 @@ def run_two_processes(graph_bp, reads, dev):
 
 
 def run_big_mem(gb, mpcb, indexb, readsb, dev):
-    """MEM seeds on the 5 Mbp graph: the suffix array built (timed), saved
-    as PREFIX.sa.npz and loaded back equal, and 128 reads aligned with
-    MEM seeds on the card."""
+    """MEM seeds on the chromosome-scale graph: the suffix array built
+    (timed), saved as PREFIX.sa.npz and loaded back equal, and 128 reads
+    aligned with MEM seeds on the card."""
     import os
     import tempfile
     import numpy as np
@@ -1424,6 +1443,187 @@ def run_big_mem(gb, mpcb, indexb, readsb, dev):
         raise AssertionError(f"big graph MEM: only {ok} reads aligned")
     return dict(text=len(idx.text), build_s=build_s, load_s=load_s,
                 bytes=size, seconds=wall, aligned=ok, ned=ned)
+
+
+def mix_inputs_job(workdir, graph_bp, counts):
+    """The sustained mix's GFA and FASTA (workload.sustained_workload:
+    scripts/sustained_test.py's bytes) in workdir, in a process of its
+    own: (GFA path, FASTA path, seconds)."""
+    from graphchainer_torch.workload import sustained_workload
+    return sustained_workload(workdir, graph_bp, counts)
+
+
+def start_mixed_cli(mix_inputs, workdir):
+    """python -m graphchainer_torch on the card on the mixed reads, at the
+    configuration of tests/torch_fixtures/scale_mix.json (the default,
+    sampling step 1), as a child process: (child, GAF path, log path,
+    start time)."""
+    import os
+    gfa, fa, _ = mix_inputs
+    out = os.path.join(workdir, "mixed.gaf")
+    log_path = os.path.join(workdir, "mixed.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as fh:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "graphchainer_torch", "-g", gfa, "-f", fa,
+             "-a", out, "--sampling-step", "1", "--device", "cuda"],
+            stdout=fh, stderr=subprocess.STDOUT, cwd=here)
+    _CHILDREN.append(child)
+    return child, out, log_path, time.perf_counter()
+
+
+def check_mixed_cli(started):
+    """The mixed CLI run's GAF lines and count lines against the JAX
+    package's (tests/torch_fixtures/scale_mix.json), line for line."""
+    import os
+    from graphchainer_torch.scale import read_counts
+    child, out, log_path, t0 = started
+    rc = child.wait(timeout=1200)
+    wall = time.perf_counter() - t0
+    with open(log_path) as fh:
+        text = fh.read()
+    if rc != 0:
+        raise AssertionError(f"mixed reads CLI exited {rc}: {text[-3000:]}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_fixtures", "scale_mix.json")) as fh:
+        want = json.load(fh)
+    with open(out) as fh:
+        lines = fh.read().splitlines()
+    ref = want["gaf"]
+    if lines != ref:
+        bad = [i for i, (a, b) in enumerate(zip(lines, ref)) if a != b]
+        raise AssertionError(
+            f"mixed reads CLI: {len(lines)} GAF lines against the JAX "
+            f"package's {len(ref)}, lines {bad[:10]} differ (first: "
+            f"{lines[bad[0]][:300] if bad else ''!r})")
+    counts = read_counts(text)
+    if counts != want["counts"]:
+        raise AssertionError(f"mixed reads CLI: counts {counts}, the JAX "
+                             f"package's {want['counts']}")
+    log(f"mixed reads CLI (python -m graphchainer_torch, {CHROM_BP} bp "
+        f"backbone, "
+        f"{sum(MIX_COUNTS)} reads of ~1.5 / 3 / 9 kbp): {len(lines)} GAF "
+        f"lines == the JAX package's (scale_mix.json), counts "
+        f"{json.dumps(counts)}; child wall {wall:.1f} s (graph loaded and "
+        f"indexed in the child)")
+    return dict(lines=len(lines), wall=wall, counts=counts)
+
+
+def run_chromosome(dev, pool, mixed):
+    """Phase 4: the 20 Mbp backbone, built once: 128 reads of ~3 kbp, its
+    MEM index and MEM seeds; the mixed CLI run started on it; 1920 reads
+    through align_batch (scripts/scale_test.py's run: 6 workers, batches
+    of 64, one warm and one timed pass) with accuracy bounds, the main
+    path's launches, peak device memory and host RSS; and a batch of 128
+    reads of the ~9 kbp class, whose stitched paths the plain polish
+    versions take in the pool (returned: the pairs and the futures, timed
+    against the kernels after phase 6)."""
+    import resource
+    import numpy as np
+    import torch
+    from graphchainer_torch.graph.mpc import build_mpc
+    from graphchainer_torch.graph.simulate import (generate_path,
+                                                   simulate_reads)
+    from graphchainer_torch.index.minimizer import build_index
+    from graphchainer_torch.models.chainer import ChainerModel, timers
+    from graphchainer_torch.ops import _cuda
+    from graphchainer_torch.workload import MIX_CLASSES, scale_graph
+    t0 = time.perf_counter()
+    _, gb, synth_s, graph_s = scale_graph(CHROM_BP)
+    t1 = time.perf_counter()
+    mpcb = build_mpc(gb)
+    indexb = build_index(gb, k=15, w=10)
+    index_s = time.perf_counter() - t1
+    path_seq, _ = generate_path(gb, seed=3)
+    reads = simulate_reads(path_seq, CHROM_READS, 3000, seed=11,
+                           error_rate=0.10, len_std=300)
+    readsb = reads[:128]
+    log(f"big graph: {CHROM_BP} bp backbone, {json.dumps(gb.stats())}; "
+        f"synthesis {synth_s:.2f} s, graph {graph_s:.2f} s, MPC and "
+        f"minimizer index {index_s:.2f} s (host build "
+        f"{time.perf_counter() - t0:.2f} s)")
+    big = ChainerModel(gb, mpcb, indexb, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    big.align_batch(readsb)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - tb
+    tb = time.perf_counter()
+    alns = big.align_batch(readsb)
+    torch.cuda.synchronize()
+    dtb = time.perf_counter() - tb
+    ok = sum(not a.failed for a in alns)
+    ned = np.mean([a.score / len(a.seq) for a in alns if not a.failed])
+    nb = len(readsb)
+    log(f"big graph: {nb} reads in {dtb:.3f} s = {nb / dtb:.2f} reads/s "
+        f"(first batch {first:.2f} s); aligned {ok}/{nb}, "
+        f"mean_norm_edit_distance {ned:.4f}")
+    if ok < 0.99 * nb:
+        raise AssertionError(f"big graph: only {ok}/{nb} reads aligned")
+    big_mem = run_big_mem(gb, mpcb, indexb, readsb, dev)
+
+    # scripts/scale_test.py's pass: 1920 reads, batches of 64, 6 workers
+    chunks = [reads[i:i + 64] for i in range(0, len(reads), 64)]
+    tb = time.perf_counter()
+    run_pass(big, chunks, 6)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - tb
+    timers.reset()
+    _cuda.reset_launches()
+    tb = time.perf_counter()
+    af, ned = run_pass(big, chunks, 6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tb
+    launches = _cuda.launches()
+    stages = {k: round(v[0], 3) for k, v in timers.snapshot().items()}
+    log(f"chromosome pass: {len(reads)} reads in {wall:.3f} s = "
+        f"{len(reads) / wall:.2f} reads/s (warm pass {warm_s:.2f} s, 6 "
+        f"workers, batches of 64); aligned_fraction {af:.4f}, "
+        f"mean_norm_edit_distance {ned:.4f}; launches {json.dumps(launches)}"
+        f"; stage seconds (thread-summed) {json.dumps(stages)}")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"chromosome pass: kernel {name} never "
+                                 "launched")
+    if af < ACC_ALIGNED_MIN or ned is None or ned > ACC_NORM_ED_MAX:
+        raise AssertionError(f"chromosome pass: aligned_fraction {af}, "
+                             f"mean_norm_edit_distance {ned}")
+
+    # a batch of the ~9 kbp class (sustained_test.py's third class)
+    mean, sd, seed = MIX_CLASSES[2]
+    reads9 = simulate_reads(path_seq, LONG_READS, mean, seed=seed,
+                            error_rate=0.10, len_std=sd)
+    _cuda.reset_launches()
+    tb = time.perf_counter()
+    alns9 = big.align_batch(reads9)
+    torch.cuda.synchronize()
+    wall9 = time.perf_counter() - tb
+    launches9 = _cuda.launches()
+    ok9 = [a for a in alns9 if not a.failed]
+    ned9 = float(np.mean([a.score / len(a.seq) for a in ok9]))
+    pairs9 = [(a.seq, big.gx.positions_seq(a.positions)) for a in ok9]
+    lens9 = [len(s) for _, s in reads9]
+    log(f"~9 kbp batch: {LONG_READS} reads of {min(lens9)}-{max(lens9)} bp "
+        f"in {wall9:.3f} s; aligned "
+        f"{len(ok9)}/{LONG_READS}, mean_norm_edit_distance {ned9:.4f}; "
+        f"longest stitched path {max(len(p) for _, p in pairs9)} bp; "
+        f"launches {json.dumps(launches9)}")
+    if len(ok9) < ACC_ALIGNED_MIN * LONG_READS or ned9 > ACC_NORM_ED_MAX:
+        raise AssertionError(f"~9 kbp batch: {len(ok9)} aligned, "
+                             f"mean_norm_edit_distance {ned9}")
+    plain9 = {bw: pool.submit(polish_plain_job, pairs9, bw)
+              for bw in LONG_BANDS}
+    mixed_out = check_mixed_cli(mixed)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"chromosome phase: peak device memory allocated {peak / 1e9:.3f} "
+        "GB")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    log(f"chromosome phase: host max RSS {rss:.3f} GB")
+    return dict(graph=gb.stats(), mem=big_mem, reads=len(reads),
+                reads_per_s=len(reads) / wall, aligned_fraction=af,
+                mean_norm_edit_distance=ned, launches=launches,
+                launches9=launches9, peak_device_gb=peak / 1e9, rss_gb=rss,
+                mixed=mixed_out), pairs9, plain9
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1676,7 +1876,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="a small workload (first check of a new kernel); "
-                         "skips the 5 Mbp graph")
+                         "skips the chromosome-scale graph")
     ap.add_argument("--profile", action="store_true",
                     help="one more pass of the main path under "
                          "torch.profiler: the device's busy share and the "
@@ -1769,6 +1969,12 @@ def main() -> int:
     global _POOL
     pool = _POOL = ProcessPoolExecutor(
         max_workers=6, mp_context=multiprocessing.get_context("spawn"))
+    # phase 4's mixed reads: the GFA and FASTA written first, beside phases
+    # 2-3 (the CLI run on them starts with phase 4)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    _TMPDIRS.append(workdir)
+    mix_inputs = None if quick else pool.submit(mix_inputs_job, workdir,
+                                                CHROM_BP, MIX_COUNTS)
     polish_plain = [pool.submit(polish_plain_job, pr, bw, c)
                     for _, pr, bw, c, _ in polish_cases]
     n_sub = 8 if quick else 16
@@ -1891,31 +2097,11 @@ def main() -> int:
         raise AssertionError(f"polish band 12: aligned_fraction {af12}, "
                              f"mean_norm_edit_distance {ned12}")
 
-    # ---- 4. a real-size graph
-    big_mem = None
+    # ---- 4. the chromosome-scale graph
+    chrom, pairs9, plain9 = None, None, {}
     if not quick:
-        gb, mpcb, indexb, _, readsb, build_b = bench_workload(
-            BIG_GRAPH_BP, 128, 3000)
-        log(f"big graph: {BIG_GRAPH_BP} bp, {gb.n_nodes} split nodes; "
-            f"host build {build_b:.2f} s")
-        big = ChainerModel(gb, mpcb, indexb, device="cuda")
-        tb = time.perf_counter()
-        big.align_batch(readsb)
-        torch.cuda.synchronize()
-        first = time.perf_counter() - tb
-        tb = time.perf_counter()
-        alns = big.align_batch(readsb)
-        torch.cuda.synchronize()
-        dtb = time.perf_counter() - tb
-        ok = sum(not a.failed for a in alns)
-        ned = np.mean([a.score / len(a.seq) for a in alns if not a.failed])
-        log(f"big graph: 128 reads in {dtb:.3f} s = {128 / dtb:.2f} reads/s "
-            f"(first batch {first:.2f} s); aligned {ok}/128, "
-            f"mean_norm_edit_distance {ned:.4f}")
-        if ok < 0.99 * 128:
-            raise AssertionError(f"big graph: only {ok}/128 reads aligned")
-        big_mem = run_big_mem(gb, mpcb, indexb, readsb, dev)
-        del big, gb, mpcb, indexb
+        chrom, pairs9, plain9 = run_chromosome(
+            dev, pool, start_mixed_cli(mix_inputs.result(), workdir))
 
     # ---- 5. GA mode and the rescue on the golden sets
     gold = run_golden(dev)
@@ -1938,6 +2124,12 @@ def main() -> int:
     seedless = run_seedless(model, reads, dev)
     outputs = run_outputs(graph_bp, reads, dev)
     g100 = run_golden100(dev)
+
+    # ---- 4 again: the fill and walk at the ~9 kbp batch's P, timed
+    pol9 = {bw: check_polish(pairs9, bw, dev, "~9 kbp batch, 20 Mbp graph",
+                             plain9[bw], timed=True)
+            for bw in (LONG_BANDS if pairs9 else ())}
+    polish_shape9 = pol9 and pol9[LONG_BANDS[0]]["P"]
 
     # ---- 7. MEM, MUM and file seeds; two processes on one card
     seed_subs["file seeds"] = pool.submit(
@@ -2006,6 +2198,24 @@ def main() -> int:
     cm = next(c for c in carried_cases
               if c["label"] == "GA carried window padded to B=48")
     seeded_launches = {f"{k} pass": v["launches"] for k, v in seeded.items()}
+    if chrom:
+        seeded_launches.update({
+            "20 Mbp graph, 1920 reads (chromosome pass)": chrom["launches"],
+            f"20 Mbp graph, {LONG_READS} reads of ~9 kbp":
+                chrom["launches9"]})
+
+    def long_batch(key):
+        """The fill's or walk's readings at the ~9 kbp batch's P."""
+        return {} if not pol9 else dict(long_batch={
+            "shape": f"R={len(pairs9)}, P={polish_shape9}",
+            "ms_by_bw": {str(bw): round(c[f"{key}_ms"], 4)
+                         for bw, c in pol9.items()},
+            "bound_ms_by_bw": {str(bw): round(c[f"{key}_bound"][0], 6)
+                               for bw, c in pol9.items()},
+            "bound_by_bw": {str(bw): c[f"{key}_bound"][1]
+                            for bw, c in pol9.items()},
+            "plain_ms_by_bw": {str(bw): round(c[f"{key}_plain_ms"], 1)
+                               for bw, c in pol9.items()}})
     kernels = [
         entry("frag_core", frag_src, frag_tpu, 0, fm["ms"], fm["plain_ms"],
               fm["bound"], shape=fm["shape"] + " (the main path's batch of "
@@ -2048,11 +2258,13 @@ def main() -> int:
         polish_entry("polish_core", "core", WARP_BANDS, 8,
                      launches_by_path={k: v["polish_core"]
                                        for k, v in seeded_launches.items()},
-                     launches_by_shard=by_shard("bench", "polish_core")),
+                     launches_by_shard=by_shard("bench", "polish_core"),
+                     **long_batch("fill")),
         polish_entry("polish_walk", "walk", WARP_BANDS, 8,
                      launches_by_path={k: v["polish_walk"]
                                        for k, v in seeded_launches.items()},
-                     launches_by_shard=by_shard("bench", "polish_walk")),
+                     launches_by_shard=by_shard("bench", "polish_walk"),
+                     **long_batch("walk")),
         polish_entry("polish_core_any", "core", ANY_BANDS, 12,
                      launches=launches12["polish_core_any"],
                      ptxas={k: list(v) for k, v in pptx.items()},
@@ -2102,11 +2314,20 @@ def main() -> int:
 
 
 _POOL = None        # phase 6's host processes, stopped on every way out
+_CHILDREN = []      # child processes (phase 4's CLI run), killed likewise
+_TMPDIRS = []       # their working directories, removed likewise
 
 
 if __name__ == "__main__":
     try:
         sys.exit(main())
     finally:
+        for _child in _CHILDREN:
+            if _child.poll() is None:
+                _child.kill()
+                _child.wait()
         if _POOL is not None:
             _POOL.shutdown(wait=True, cancel_futures=True)
+        import shutil
+        for _d in _TMPDIRS:
+            shutil.rmtree(_d, ignore_errors=True)

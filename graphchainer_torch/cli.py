@@ -282,11 +282,15 @@ def main(argv=None) -> int:
         print("error: need reads (-f) and an output (-a / --corrected-out)",
               file=sys.stderr)
         return 1
-    stats = align_reads(params_from_args(args))
-    print(f"Input reads: {stats.reads} ({stats.bp_in_reads}bp)")
-    print(f"Reads with an alignment: {stats.reads_with_an_alignment}")
-    print(f"Alignments: {stats.alignments} ({stats.bp_in_alignments}bp)")
+    print(count_lines(align_reads(params_from_args(args))))
     return 0
+
+
+def count_lines(stats) -> str:
+    """The run's statistics as the CLI prints them, one count a line."""
+    return (f"Input reads: {stats.reads} ({stats.bp_in_reads}bp)\n"
+            f"Reads with an alignment: {stats.reads_with_an_alignment}\n"
+            f"Alignments: {stats.alignments} ({stats.bp_in_alignments}bp)")
 
 
 if __name__ == "__main__":

@@ -438,32 +438,13 @@ def find_chains(n: int, out_ptr: np.ndarray, out_idx: np.ndarray,
     return chain, pos
 
 
-def corridor_polish_batch(gx, positions_list, ops_list, reads, scores,
-                          band: int = 48, max_arm_len: int = 64):
-    """Exact banded DP over each read's path-corridor DAG (path + 1-hop
-    sibling/skip/insertion arms), with per-cell backtrace — resolves all
-    the bubble-arm choices jointly, unlike the local repair_batch.  The
-    C++ kernel documents the rationale (the word-granular device
-    backwalk can emit a path that misses the banded-optimal score; the
-    reference's per-cell backtrace never does,
-    src/GraphAlignerBitvectorCommon.h:392-544).
-
-    positions_list/ops_list/reads/scores: per-read current alignment.
-    Returns a list of (score, positions (n,2), ops uint8) tuples, or
-    None where the corridor found nothing strictly better."""
-    lib = get_lib()
-    if not hasattr(lib, "_corridor_sig"):
-        _U8P = ctypes.POINTER(ctypes.c_uint8)
-        lib.corridor_polish_batch.restype = ctypes.c_void_p
-        lib.corridor_polish_batch.argtypes = (
-            [ctypes.c_int64] + [_I64P] * 5 + [_U8P] + [_I64P] * 3
-            + [ctypes.c_int64] + [_I64P] * 4 + [_U8P, _U8P, _I64P]
-            + [_I64P, ctypes.c_int64, ctypes.c_int64])
-        lib.corridor_sizes.argtypes = [ctypes.c_void_p, _I64P]
-        lib.corridor_copy.argtypes = [ctypes.c_void_p, _I64P, _I64P,
-                                      _I64P, _U8P, _I64P]
-        lib.corridor_free.argtypes = [ctypes.c_void_p]
-        lib._corridor_sig = True
+def _alignment_args(gx, positions_list, ops_list, reads):
+    """The graph and per-read alignment arguments that repair_batch and
+    corridor_polish_batch share: the graph's tables, then each read's
+    positions, ops and bases concatenated with their offsets (a read
+    without positions or ops as an empty one).  The arrays stay alive
+    with the pointers made from them (numpy's data_as keeps a reference).
+    """
     g = gx.g
     nr = len(reads)
     pos_off = np.zeros(nr + 1, dtype=np.int64)
@@ -483,23 +464,79 @@ def corridor_polish_batch(gx, positions_list, ops_list, reads, scores,
         read_off[i + 1] = read_off[i] + len(reads[i])
     pos_cat = (np.concatenate(pos_parts, axis=0) if pos_off[-1]
                else np.zeros((1, 2), dtype=np.int64))
-    pos_nodes = np.ascontiguousarray(pos_cat[:, 0])
-    pos_offs = np.ascontiguousarray(pos_cat[:, 1])
     ops_cat = (np.concatenate(ops_parts) if ops_off[-1]
                else np.zeros(1, dtype=np.uint8))
     read_bytes = np.frombuffer("".join(reads).encode("ascii") or b"\0",
                                dtype=np.uint8)
-    i64 = lambda a: np.ascontiguousarray(a, dtype=np.int64)
-    cur = i64([int(s) for s in scores])
-    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64 = lambda a: _ptr(np.ascontiguousarray(a, dtype=np.int64))
+    return (ctypes.c_int64(g.n_nodes), _ptr(gx.out_ptr), _ptr(gx.out_idx),
+            _ptr(gx.in_ptr), _ptr(gx.in_idx), _ptr(gx.node_len64),
+            gx.seq_bytes.ctypes.data_as(_U8P), i64(gx.di_base),
+            i64(g.orig_node), i64(g.orig_offset), ctypes.c_int64(nr),
+            _ptr(pos_off), i64(pos_cat[:, 0]), i64(pos_cat[:, 1]),
+            _ptr(ops_off), ops_cat.ctypes.data_as(_U8P),
+            read_bytes.ctypes.data_as(_U8P), _ptr(read_off))
+
+
+def repair_batch(gx, positions_list, ops_list, reads, max_arm_len: int = 32):
+    """Whole-batch polish-guided bubble repair: align/repair.repair_read
+    in C++, one read after another (graphchainer_tpu/native.py's
+    repair_batch).  positions_list: per read, (P, 2) int64 positions (or
+    None / empty); ops_list: per read, the polish ops (or None); reads:
+    the read strings.  Returns a list of repaired (n, 2) arrays (None =
+    no change)."""
+    lib = get_lib()
+    if not hasattr(lib, "_repair_sig"):
+        lib.repair_batch.restype = ctypes.c_void_p
+        lib.repair_batch.argtypes = (
+            [ctypes.c_int64] + [_I64P] * 5 + [_U8P] + [_I64P] * 3
+            + [ctypes.c_int64] + [_I64P] * 4 + [_U8P, _U8P, _I64P]
+            + [ctypes.c_int64, _I64P])
+        lib._repair_sig = True
+    nr = len(reads)
+    changed = np.zeros(nr, dtype=np.int64)
+    h = lib.repair_batch(
+        *_alignment_args(gx, positions_list, ops_list, reads),
+        ctypes.c_int64(max_arm_len), _ptr(changed))
+    sizes = np.empty(2, dtype=np.int64)
+    lib.paths_sizes(h, _ptr(sizes))
+    nq, ndata = int(sizes[0]), int(sizes[1])
+    offsets = np.empty(nq + 1, dtype=np.int64)
+    data = np.empty(max(ndata, 1), dtype=np.int64)
+    lib.paths_copy(h, _ptr(offsets), _ptr(data))
+    lib.paths_free(h)
+    return [data[offsets[i]:offsets[i + 1]].reshape(-1, 2).copy()
+            if changed[i] else None for i in range(nr)]
+
+
+def corridor_polish_batch(gx, positions_list, ops_list, reads, scores,
+                          band: int = 48, max_arm_len: int = 64):
+    """Exact banded DP over each read's path-corridor DAG (path + 1-hop
+    sibling/skip/insertion arms), with per-cell backtrace — resolves all
+    the bubble-arm choices jointly, unlike the local repair_batch.  The
+    C++ kernel documents the rationale (the word-granular device
+    backwalk can emit a path that misses the banded-optimal score; the
+    reference's per-cell backtrace never does,
+    src/GraphAlignerBitvectorCommon.h:392-544).
+
+    positions_list/ops_list/reads/scores: per-read current alignment.
+    Returns a list of (score, positions (n,2), ops uint8) tuples, or
+    None where the corridor found nothing strictly better."""
+    lib = get_lib()
+    if not hasattr(lib, "_corridor_sig"):
+        lib.corridor_polish_batch.restype = ctypes.c_void_p
+        lib.corridor_polish_batch.argtypes = (
+            [ctypes.c_int64] + [_I64P] * 5 + [_U8P] + [_I64P] * 3
+            + [ctypes.c_int64] + [_I64P] * 4 + [_U8P, _U8P, _I64P]
+            + [_I64P, ctypes.c_int64, ctypes.c_int64])
+        lib.corridor_sizes.argtypes = [ctypes.c_void_p, _I64P]
+        lib.corridor_copy.argtypes = [ctypes.c_void_p, _I64P, _I64P,
+                                      _I64P, _U8P, _I64P]
+        lib.corridor_free.argtypes = [ctypes.c_void_p]
+        lib._corridor_sig = True
+    cur = np.ascontiguousarray([int(s) for s in scores], dtype=np.int64)
     h = lib.corridor_polish_batch(
-        ctypes.c_int64(g.n_nodes), _ptr(gx.out_ptr), _ptr(gx.out_idx),
-        _ptr(gx.in_ptr), _ptr(gx.in_idx), _ptr(gx.node_len64),
-        gx.seq_bytes.ctypes.data_as(u8p), _ptr(i64(gx.di_base)),
-        _ptr(i64(g.orig_node)), _ptr(i64(g.orig_offset)),
-        ctypes.c_int64(nr), _ptr(pos_off), _ptr(pos_nodes),
-        _ptr(pos_offs), _ptr(ops_off), ops_cat.ctypes.data_as(u8p),
-        read_bytes.ctypes.data_as(u8p), _ptr(read_off), _ptr(cur),
+        *_alignment_args(gx, positions_list, ops_list, reads), _ptr(cur),
         ctypes.c_int64(band), ctypes.c_int64(max_arm_len))
     sizes = np.empty(3, dtype=np.int64)
     lib.corridor_sizes(h, _ptr(sizes))
@@ -510,7 +547,7 @@ def corridor_polish_batch(gx, positions_list, ops_list, reads, scores,
     ops_data = np.empty(max(nops, 1), dtype=np.uint8)
     new_scores = np.empty(nq, dtype=np.int64)
     lib.corridor_copy(h, _ptr(pos_offsets), _ptr(pos_data),
-                      _ptr(ops_offsets), ops_data.ctypes.data_as(u8p),
+                      _ptr(ops_offsets), ops_data.ctypes.data_as(_U8P),
                       _ptr(new_scores))
     lib.corridor_free(h)
     out = []

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from graphchainer_torch.ops.myers import (MASK32, ONES, W, advance_word,
+from graphchainer_torch.ops.myers import (_ABOVE, MASK32, ONES, W,
                                           popcount32, u32)
 
 BIGS = 1 << 28
@@ -44,96 +44,143 @@ def _polish_core_t(planes_t, path_t, read_len, path_len, bw: int):
     Returns (dump_vp, dump_vn (P, bw, R) int64 words, dump_sb (P, bw, R)
     per-word bottom scores, dump_base (P, R) band top word per column).
 
-    The band slides down by `shift` words per column.  The plane words of
-    the band come from a rolling window of bw + WIN_EXTRA words: a read
-    whose band moves by at most one word and whose window still holds bw
-    valid words rolls it (fast branch); any other read refills it from its
-    planes (slow branch).  The reference takes one branch for the whole
-    batch; both choices give the same dump, since only the first bw
-    window words are read and they are exact in either branch."""
+    The band slides down by `shift` words per column (at most bw: a
+    longer jump refills the whole band from the old bottom score).  The
+    plane words of the band come from a rolling window of bw + WIN_EXTRA
+    words: a read whose band moves by at most one word and whose window
+    still holds bw valid words rolls it; any other read refills it from
+    its planes.  At bw >= 2 the window's first bw words are always the
+    band's own plane words; at bw = 1 a band that jumps two or more words
+    a column leaves the rolled window behind it, as in the reference.
+    The band bases, shifts and window bases depend on the lengths alone,
+    so they are computed for every column first, and the match words a
+    chunk of columns at a time.
+
+    Each column advances its bw words with the horizontal delta entering
+    each word from the one above (+1 at the top).  A word's result
+    depends on that delta only through bit 0 of its match word (set for
+    -1), so every word is advanced for both match words at once and the
+    chain of deltas is resolved afterwards, one cheap step a word."""
     _, RW, R = planes_t.shape
     P = path_t.shape[0]
     dev = planes_t.device
-    planes_t = u32(planes_t)
-    path_t = u32(path_t)
-    rl = read_len.to(_I64)
-    pl1 = path_len.to(_I64).clamp(min=1)
-    bwe = bw + WIN_EXTRA
-    rw_cap = torch.div(rl + W - 1, W, rounding_mode="floor")
-    ub = (rw_cap - bw).clamp(min=0)
-    scale = rl.to(torch.float32) / pl1.to(torch.float32)
-
-    def band_base(col: int):
-        cc = torch.clamp(pl1 - 1, max=col)
-        target = (cc + 1).to(torch.float32) * scale
-        b = (target * (1.0 / W)).to(torch.int32).to(_I64) - bw // 2
-        return torch.minimum(b.clamp(min=0), ub)
-
-    iota_we = torch.arange(bwe, dtype=_I64, device=dev)[:, None]
-
-    def refill(base):
-        """(4, bwe, R): window word w of plane b = planes[b, base + w]."""
-        idx = base[None, :] + iota_we
-        g = planes_t.gather(1, idx.clamp(max=RW - 1)[None].expand(4, bwe, R))
-        return torch.where((idx < RW)[None], g, 0)
-
-    iota_w = torch.arange(bw, dtype=_I64, device=dev)[:, None]
-    base = band_base(0)
-    vps = torch.full((bw, R), ONES, dtype=_I64, device=dev)
-    vns = torch.zeros((bw, R), dtype=_I64, device=dev)
-    sbs = base[None, :] * W + (iota_w + 1) * W
-    win = refill(base)
-    valid = torch.full((R,), bwe, dtype=_I64, device=dev)
-
     dump_vp = torch.empty((P, bw, R), dtype=_I64, device=dev)
     dump_vn = torch.empty_like(dump_vp)
     dump_sb = torch.empty_like(dump_vp)
     dump_base = torch.empty((P, R), dtype=_I64, device=dev)
-    for col in range(P):
-        pmm = path_t[col]
-        nb = torch.maximum(band_base(col), base)
-        shift = (nb - base).clamp(0, bw)
-        valid = valid - shift
-        slow = (shift > 1) | (valid < bw)
-
-        # band words: drop `shift` words off the top, fill the bottom with
-        # all-insertion words continuing from the old bottom score
-        bot_sb = sbs[-1]
-        idx = iota_w + shift[None, :]
-        keep = idx < bw
-        idxc = idx.clamp(max=bw - 1)
-        vps = torch.where(keep, vps.gather(0, idxc), ONES)
-        vns = torch.where(keep, vns.gather(0, idxc), 0)
-        sbs = torch.where(keep, sbs.gather(0, idxc),
-                          bot_sb[None, :] + (idx - bw + 1) * W)
-
-        # plane window: fast roll by the (0 or 1) shift, or slow refill
-        rolled = torch.where((shift == 1)[None, None, :],
-                             torch.roll(win, -1, dims=1), win)
-        win = torch.where(slow[None, None, :], refill(nb), rolled)
-        valid = torch.where(slow, bwe, valid)
-
-        eq = torch.zeros((bw, R), dtype=_I64, device=dev)
-        for b in range(4):
-            eq = eq | (win[b, :bw] * ((pmm >> b) & 1)[None, :])
-
-        hin = torch.ones(R, dtype=_I64, device=dev)
-        nvps, nvns, nsbs = [], [], []
-        for w in range(bw):
-            nvp, nvn, nsb, hin = advance_word(vps[w], vns[w], sbs[w], eq[w],
-                                              hin)
-            nvps.append(nvp)
-            nvns.append(nvn)
-            nsbs.append(nsb)
-        vps = torch.stack(nvps)
-        vns = torch.stack(nvns)
-        sbs = torch.stack(nsbs)
-        dump_vp[col] = vps
-        dump_vn[col] = vns
-        dump_sb[col] = sbs
-        dump_base[col] = nb
-        base = nb
+    if P == 0:
+        return dump_vp, dump_vn, dump_sb, dump_base
+    with torch.inference_mode():
+        _fill(u32(planes_t), u32(path_t), read_len, path_len, bw,
+              (dump_vp, dump_vn, dump_sb, dump_base))
     return dump_vp, dump_vn, dump_sb, dump_base
+
+
+FILL_CHUNK = 256     # columns whose match words are gathered at once
+
+
+def _window_base(nb, shift, bw: int):
+    """(P, R) plane word of each column's window word 0 (see
+    _polish_core_t): the band base at bw >= 2; at bw = 1 the serial
+    roll-or-refill of the window."""
+    if bw > 1:
+        return nb
+    bwe = bw + WIN_EXTRA
+    wb = torch.empty_like(nb)
+    cur = nb[0].clone()
+    valid = torch.full_like(cur, bwe)
+    for col in range(nb.shape[0]):
+        sh = shift[col]
+        valid = valid - sh
+        slow = (sh > 1) | (valid < bw)
+        cur = torch.where(slow, nb[col], cur + (sh == 1).to(_I64))
+        valid = torch.where(slow, bwe, valid)
+        wb[col] = cur
+    return wb
+
+
+def _fill(planes_t, path_t, read_len, path_len, bw: int, dump):
+    dump_vp, dump_vn, dump_sb, dump_base = dump
+    _, RW, R = planes_t.shape
+    P = path_t.shape[0]
+    dev = planes_t.device
+    rl = read_len.to(_I64)
+    pl1 = path_len.to(_I64).clamp(min=1)
+    rw_cap = torch.div(rl + W - 1, W, rounding_mode="floor")
+    ub = (rw_cap - bw).clamp(min=0)
+    scale = rl.to(torch.float32) / pl1.to(torch.float32)
+
+    # band base of every column: the target row's word less half the band,
+    # never moving up; the shift from the column before, clamped to bw
+    cols = torch.arange(P, dtype=_I64, device=dev)[:, None]
+    cc = torch.minimum(pl1[None, :] - 1, cols)
+    target = (cc + 1).to(torch.float32) * scale[None, :]
+    bb = (target * (1.0 / W)).to(torch.int32).to(_I64) - bw // 2
+    bb = torch.minimum(bb.clamp(min=0), ub[None, :])
+    nb = torch.cummax(bb, dim=0).values
+    shift = (nb - torch.cat([bb[:1], nb[:-1]])).clamp(0, bw)
+    wb = _window_base(nb, shift, bw)
+    dump_base.copy_(nb)
+    shifted = (shift != 0).any(dim=1).tolist()
+
+    iota_w = torch.arange(bw, dtype=_I64, device=dev)[:, None]
+    vps = torch.full((bw, R), ONES, dtype=_I64, device=dev)
+    vns = torch.zeros((bw, R), dtype=_I64, device=dev)
+    sbs = nb[0][None, :] * W + (iota_w + 1) * W
+    for c0 in range(0, P, FILL_CHUNK):
+        c1 = min(P, c0 + FILL_CHUNK)
+        # match words of the chunk's columns: window word w of column c is
+        # plane word wb[c] + w (none past the read's words)
+        widx = wb[c0:c1, None, :] + iota_w[None]
+        g = planes_t.gather(1, widx.clamp(max=RW - 1).reshape(1, -1, R)
+                            .expand(4, -1, R)).reshape(4, c1 - c0, bw, R)
+        g = torch.where((widx < RW)[None], g, 0)
+        pm = path_t[c0:c1, None, :]
+        eqs = g[0] * (pm & 1)
+        for b in range(1, 4):
+            eqs = eqs | (g[b] * ((pm >> b) & 1))
+        # each column's match words for a top delta of 0 or +1, and of -1
+        eqs = torch.stack((eqs, eqs | 1), dim=1)
+        for col in range(c0, c1):
+            if shifted[col]:
+                # drop `shift` words off the top, fill the bottom with
+                # all-insertion words continuing from the old bottom score
+                sh = shift[col]
+                bot_sb = sbs[-1]
+                idx = iota_w + sh[None, :]
+                keep = idx < bw
+                idxc = idx.clamp(max=bw - 1)
+                vps = torch.where(keep, vps.gather(0, idxc), ONES)
+                vns = torch.where(keep, vns.gather(0, idxc), 0)
+                sbs = torch.where(keep, sbs.gather(0, idxc),
+                                  bot_sb[None, :] + (idx - bw + 1) * W)
+            # myers.advance_word for both match words: [0] eq (delta in
+            # 0 or +1), [1] eq | 1 (delta in -1)
+            e2 = eqs[col - c0]
+            xv = e2 | vns
+            xh = ((((e2 & vps) + vps) & MASK32) ^ vps) | e2
+            ph = vns | (~(xh | vps) & MASK32)
+            mh = vps & xh
+            hout = ((ph >> (W - 1)) & 1) - ((mh >> (W - 1)) & 1)
+            h0, h1 = hout[0].unbind(0), hout[1].unbind(0)
+            hin = [torch.ones(R, dtype=_I64, device=dev)]
+            neg = hin[0] < 0
+            for w in range(1, bw):
+                hin.append(torch.where(neg, h1[w - 1], h0[w - 1]))
+                neg = hin[-1] < 0
+            hin = torch.stack(hin)
+            neg = hin < 0
+            xv = torch.where(neg, xv[1], xv[0])
+            ph = torch.where(neg, ph[1], ph[0])
+            mh = torch.where(neg, mh[1], mh[0])
+            ph = ((ph << 1) & MASK32) | (hin > 0).to(_I64)
+            mh = ((mh << 1) & MASK32) | neg.to(_I64)
+            vps = mh | (~(xv | ph) & MASK32)
+            vns = ph & xv
+            sbs = sbs + torch.where(neg, hout[1], hout[0])
+            dump_vp[col] = vps
+            dump_vn[col] = vns
+            dump_sb[col] = sbs
 
 
 def _score_from_dump_t(dump_vp, dump_vn, dump_sb, dump_base, read_len,
@@ -182,32 +229,34 @@ def _backtrace_t(dump_vp, dump_vn, dump_sb, dump_base, planes_t, path_t,
     vn_flat = dump_vn.reshape(P * bw, R)
     sb_flat = dump_sb.reshape(P * bw, R)
     lanes = torch.arange(R, device=dev)
+    above_of = torch.tensor(_ABOVE, dtype=_I64, device=dev)
+    bits16 = popcount32(torch.arange(1 << 16, dtype=_I64, device=dev))
+    # the read's 4-bit match mask of every row, (RW * W, R)
+    rows = (u32(planes_t)[:, :, None, :]
+            >> torch.arange(W, dtype=_I64, device=dev)[None, None, :, None]
+            ) & 1
+    row_mask = (rows[0] | (rows[1] << 1) | (rows[2] << 2)
+                | (rows[3] << 3)).reshape(RW * W, R)
 
     def score(rr, cc):
+        """Score of row rr at column cc, (..., R) each."""
         cq = cc.clamp(0, P - 1)
         base_c = dump_base[cq, lanes].to(_I64)
         w = torch.div(rr, W, rounding_mode="floor") - base_c
         idx = cq * bw + w.clamp(0, bw - 1)
-        svp = u32(vp_flat[idx, lanes])
-        svn = u32(vn_flat[idx, lanes])
-        ssb = sb_flat[idx, lanes].to(_I64)
-        above = _above(torch.remainder(rr, W))
-        s = ssb - popcount32(svp & above) + popcount32(svn & above)
+        above = above_of[torch.remainder(rr, W)]
+        x = u32(torch.stack((vp_flat[idx, lanes], vn_flat[idx, lanes]))
+                ) & above
+        vpn = bits16[x & 0xFFFF] + bits16[x >> 16]
+        s = sb_flat[idx, lanes].to(_I64) - vpn[0] + vpn[1]
         s = torch.where((w < 0) | (w >= bw), BIGB, s)
         s = torch.where(rr < 0, cc + 1, s)
         s = torch.where(cc < 0, rr + 1, s)
         return torch.where((rr < 0) & (cc < 0), 0, s)
 
     def matches(rr, cc):
-        rq = rr.clamp(0, RW * W - 1)
-        pm = u32(path_t[cc.clamp(0, P - 1), lanes])
-        wq = torch.div(rq, W, rounding_mode="floor")
-        bitpos = torch.remainder(rq, W)
-        m = torch.zeros_like(rq)
-        for b in range(4):
-            plane = u32(planes_t[b][wq, lanes])
-            m = m | (((plane >> bitpos) & 1) & ((pm >> b) & 1))
-        return m == 1
+        pm = path_t[cc.clamp(0, P - 1), lanes]
+        return (row_mask[rr.clamp(0, RW * W - 1), lanes] & pm & 15) != 0
 
     r = rl - 1
     c = pl - 1
@@ -219,9 +268,10 @@ def _backtrace_t(dump_vp, dump_vn, dump_sb, dump_base, planes_t, path_t,
     for i in range(max_steps):
         if i % sync_every == 0 and bool(done.all()):
             break
-        d = score(r - 1, c - 1)
-        left = score(r, c - 1)
-        up = score(r - 1, c)
+        # the three neighbours' scores in one lookup
+        r1, c1 = r - 1, c - 1
+        d, left, up = score(torch.stack((r1, r, r1)),
+                            torch.stack((c1, c1, c))).unbind(0)
         sub = torch.where(matches(r, c), 0, 1)
         can_diag = (r >= 0) & (c >= 0) & (s == d + sub)
         can_left = (c >= 0) & (s == left + 1)
@@ -339,14 +389,18 @@ def _polish_walk_t(dump_vp, dump_vn, dump_sb, dump_base, planes_t, path_t,
                    read_len, path_len, bw: int, max_steps: int,
                    ops_cap: int = 0) -> torch.Tensor:
     """Score, backtrace and op packing of a dump, plain torch: the
-    (R, 3 + ops_cap/16) int64 rows of polish_full_packed2."""
-    score = _score_from_dump_t(dump_vp, dump_vn, dump_sb, dump_base,
-                               read_len, path_len, bw)
-    bt = _backtrace_t(dump_vp, dump_vn, dump_sb, dump_base, planes_t,
-                      path_t, read_len, path_len, bw, max_steps, ops_cap)
-    return torch.cat([score[:, None], bt.n_ops[:, None],
-                      bt.touched.to(_I64)[:, None], pack_ops2(bt.ops_rev)],
-                     dim=1)
+    (R, 3 + ops_cap/16) int64 rows of polish_full_packed2 (computed in
+    inference mode, which halves the cost of the walk's small ops)."""
+    with torch.inference_mode():
+        score = _score_from_dump_t(dump_vp, dump_vn, dump_sb, dump_base,
+                                   read_len, path_len, bw)
+        bt = _backtrace_t(dump_vp, dump_vn, dump_sb, dump_base, planes_t,
+                          path_t, read_len, path_len, bw, max_steps,
+                          ops_cap)
+        rows = torch.cat([score[:, None], bt.n_ops[:, None],
+                          bt.touched.to(_I64)[:, None],
+                          pack_ops2(bt.ops_rev)], dim=1)
+    return rows.clone()
 
 
 def _polish_full(planes_t, path_t, read_len, path_len, bw: int,

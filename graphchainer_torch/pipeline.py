@@ -186,8 +186,9 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
     devices = local_devices(process_device(
         params.device, params.process_id, params.num_processes))
     try:
-        g = load_graph(params.graph_file,
-                       allow_cycles=(params.mode == "ga"))
+        with timers.stage("load_graph"):
+            g = load_graph(params.graph_file,
+                           allow_cycles=(params.mode == "ga"))
     except ValueError as e:
         if "directed cycle" in str(e) and params.mode != "ga":
             print("The input sequence graph has a directed cycle.\n"
@@ -198,7 +199,8 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
         raise
     if params.verbose:
         print(f"graph: {g.stats()}")
-    index = get_or_build_minimizer(g, params)
+    with timers.stage("index"):
+        index = get_or_build_minimizer(g, params)
     if params.mode != "ga" and (
             params.x_drop is not None
             or (params.precise_clipping is not None
@@ -236,7 +238,8 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
             OptimalConfig(polish_band_words=params.chainer.polish_band_words),
             device=devices[0])
     else:
-        mpc = get_or_build_mpc(g, params.mpc_index_file)
+        with timers.stage("index"):
+            mpc = get_or_build_mpc(g, params.mpc_index_file)
         file_seeds = seed_fn = None
         if params.seed_file:
             from graphchainer_torch.io.gam_reader import load_gam_seeds
@@ -385,4 +388,9 @@ def _align_reads(params: PipelineParams) -> AlignmentStats:
             rc = timers.report_counters()
             if rc:
                 print(rc)
+        from graphchainer_torch.ops import _cuda
+        launched = {k: v for k, v in _cuda.launches().items() if v}
+        if launched:
+            print("Kernel launches: " + ", ".join(
+                f"{k} {v}" for k, v in launched.items()))
     return stats

@@ -11,6 +11,11 @@ component_chains_workload is the multi-component graph of the
 component-sharded tables' test, and fusion_workload the fusion finder's
 two-gene input.
 
+scale_graph, mix_reads and sustained_workload are the chromosome-scale
+inputs of scripts/scale_test.py and scripts/sustained_test.py (copies of
+their generators): the bench graph at millions of bases and the sustained
+mix of ~1.5, ~3 and ~9 kbp reads, written as that script writes them.
+
 polish_hard_pairs makes the (read, path) pairs that the polish kernels
 must survive, for the CPU tests (small) and the smoke run (full size);
 frag_hard_batch the fragment batch that the fragment DP must survive,
@@ -92,6 +97,59 @@ def bench_workload(graph_bp: int = 60_000, n_reads: int = 960,
     reads = simulate_reads(path_seq, n_reads, read_len, seed=11,
                            error_rate=0.10, len_std=read_len // 10)
     return g, mpc, index, path_seq, reads, build_s
+
+
+# The sustained mix of scripts/sustained_test.py:55-85, one entry a class:
+# (mean length, length sd, read seed), 10% error, from path seed 3.
+MIX_CLASSES = ((1500, 300, 11), (3000, 600, 12), (9000, 1500, 13))
+
+
+def mix_counts(n_reads: int):
+    """sustained_test.py's split of n_reads over MIX_CLASSES: half, 35%,
+    the rest."""
+    n1 = n_reads // 2
+    n2 = int(n_reads * 0.35)
+    return (n1, n2, n_reads - n1 - n2)
+
+
+def scale_graph(graph_bp: int):
+    """The bench generator's graph (default_rng(7)) at graph_bp and its
+    alignment graph: (bg, g, synthesis seconds, graph build seconds)."""
+    t0 = time.perf_counter()
+    bg = build_bench_graph(np.random.default_rng(7), graph_bp)
+    t1 = time.perf_counter()
+    g = build_alignment_graph(bg)
+    return bg, g, t1 - t0, time.perf_counter() - t1
+
+
+def mix_reads(g, counts):
+    """sustained_test.py's reads on g: counts[k] reads of MIX_CLASSES[k],
+    classes in order, named r{i}_{simulated name}."""
+    path_seq, _ = generate_path(g, seed=3)
+    reads = []
+    for n, (mean, sd, seed) in zip(counts, MIX_CLASSES):
+        reads += simulate_reads(path_seq, n, mean, seed=seed,
+                                error_rate=0.10, len_std=sd)
+    return [(f"r{i}_{name}", seq) for i, (name, seq) in enumerate(reads)]
+
+
+def write_fasta(reads, path: str) -> None:
+    with open(path, "w") as f:
+        for name, seq in reads:
+            f.write(f">{name}\n{seq}\n")
+
+
+def sustained_workload(workdir: str, graph_bp: int, counts):
+    """sustained_test.py's inputs in workdir: g.gfa (the scale graph, its
+    GFA text) and reads.fa (mix_reads).  Returns (gfa path, FASTA path,
+    seconds)."""
+    t0 = time.perf_counter()
+    bg, g, _, _ = scale_graph(graph_bp)
+    gfa = os.path.join(workdir, "g.gfa")
+    fa = os.path.join(workdir, "reads.fa")
+    _write_gfa(bg, gfa)
+    write_fasta(mix_reads(g, counts), fa)
+    return gfa, fa, time.perf_counter() - t0
 
 
 def component_chains_workload(reads_per_component: int = 1):

@@ -199,10 +199,24 @@ def fusion_finder():
         return fusion_record(outs)
 
 
+def scale_mix_small():
+    """python -m graphchainer_tpu.cli on the sustained mix at
+    tests/test_torch_scale.py's small size: its GAF lines and counts."""
+    from test_torch_scale import SMALL_BP, SMALL_COUNTS, jax_cli_record
+    return jax_cli_record(SMALL_BP, SMALL_COUNTS)
+
+
+def scale_mix():
+    """The same on the 20 Mbp backbone with 16 reads of each class
+    (chip_smoke.py's mixed phase; ~3 min and ~5 GB on the CPU)."""
+    from test_torch_scale import SCALE_BP, SCALE_COUNTS, jax_cli_record
+    return jax_cli_record(SCALE_BP, SCALE_COUNTS)
+
+
 FIXTURES = {f.__name__: f for f in (
     seedless_scan, seedless_model, seedless_cli, full_start, optimal_model,
     optimal_cli, polish_any_band, polish_cli, seeds_model, seeds_cli,
-    slice_model, fusion_finder)}
+    slice_model, fusion_finder, scale_mix_small, scale_mix)}
 
 
 def record(name: str) -> dict:
