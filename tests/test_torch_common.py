@@ -80,6 +80,11 @@ def array_record(a) -> dict:
                 data=a.reshape(-1).astype(np.int64).tolist())
 
 
+def record_array(rec: dict) -> np.ndarray:
+    """The array that array_record wrote."""
+    return np.array(rec["data"], dtype=rec["dtype"]).reshape(rec["shape"])
+
+
 def output_record(data: dict) -> dict:
     """Output files' bytes as JSON values: GAM (binary, decompressed) as
     hex, every text output as text."""
@@ -299,6 +304,7 @@ _PORT_MODULES = [
 ]
 
 
+@pytest.mark.timeout(600)
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke, imports with jax and the
     JAX package both blocked."""

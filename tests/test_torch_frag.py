@@ -2,40 +2,34 @@
 core _frag_core_t, the align_fragments_tl front end, the host bands and
 tables, and run_fragments — exact equality on the same numpy
 inputs (the JAX side runs its XLA core, which tests/test_pallas_frag.py
-pins to the Pallas kernel)."""
+pins to the Pallas kernel).  The JAX side of align_fragments_tl and
+run_fragments is recorded in tests/torch_fixtures/frag_tl.json
+(make_fixtures.py there): its three shapes cost ~80 s of XLA compile on
+the CPU, and tests/test_torch_fixtures.py holds the record to a live run."""
 import functools
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
 from graphchainer_tpu.align import anchors as JA
-from graphchainer_tpu.ops import frag_align as JF
 from graphchainer_torch.align import anchors as TA
 from graphchainer_torch.ops import frag_align as TF
 
 from test_torch_common import (frag_batch, host_args, lane_major_inputs,
-                               padded_batch, port_graph, slice_case, t64)
+                               load_fixture, padded_batch, port_graph,
+                               record_array, slice_case, t64)
 
 NAMES = ("best_score", "best_slot", "best_col", "best_in")
 
 
 @functools.lru_cache(maxsize=None)
 def jax_tl(B):
-    """graphchainer_tpu's align_fragments_tl on padded_batch(B), as numpy.
-    Off the TPU it runs the JAX _frag_core_t (its Pallas gate is closed),
-    so this is also the JAX core's result, transposed."""
-    model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
-    gx = model.gx
-    r = JF.align_fragments_tl(
-        jnp.asarray(gx.node_eq_cat), jnp.asarray(gx.node_len_cat),
-        jnp.asarray(bnc), jnp.asarray(bi), jnp.asarray(ss),
-        jnp.asarray(req), jnp.asarray(rows), n_slices=S, max_in=4,
-        band_level=jnp.asarray(bl),
-        n_levels=JA.level_bucket(bl, bnc.shape[1]))
-    return {name: np.asarray(getattr(r, name)) for name in NAMES}
+    """graphchainer_tpu's align_fragments_tl on padded_batch(B), as numpy
+    (recorded).  Off the TPU it runs the JAX _frag_core_t (its Pallas gate
+    is closed), so this is also the JAX core's result, transposed."""
+    rec = load_fixture("frag_tl")[str(B)]
+    return {name: record_array(rec[name]) for name in NAMES}
 
 
 @pytest.mark.parametrize("B", [16, 32])
@@ -126,13 +120,11 @@ def test_run_fragments_code0_rows_match_jax():
     fragment's end then match A, and on this batch that changes best_in."""
     model, bnc, bi, ss, req, rows, S, bl = padded_batch(16)
     assert TA.code0_padding(bnc, bi, req, rows, 4)
-    jgx = JA.GraphTensors.build(slice_case()[0])
-    ref = JA.run_fragments(jgx, bnc, bi, ss, req, rows, S, 4,
-                           band_level=bl)
+    ref = load_fixture("frag_tl")["code0"]
     got = TA.run_fragments(model.gx, bnc, bi, ss, req, rows, S, 4, bl,
                            "cpu")
     for name in NAMES:
-        np.testing.assert_array_equal(np.asarray(getattr(ref, name)),
+        np.testing.assert_array_equal(record_array(ref[name]),
                                       getattr(got, name), err_msg=name)
     assert not np.array_equal(jax_tl(16)["best_in"], got.best_in)
 

@@ -85,6 +85,7 @@ def test_noisy_read_escalates():
     assert ta[0].score < 0.35 * len(ta[0].seq)
 
 
+@pytest.mark.timeout(600)
 def test_cli_gaf_matches_jax(tmp_path):
     """python -m graphchainer_torch writes the GAF lines of the JAX
     package's alignments (run with jax blocked in the child; three of the

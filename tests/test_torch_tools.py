@@ -216,6 +216,7 @@ def test_fusion_finder_matches_jax(tmp_path):
     assert fusion_record(outs) == want
 
 
+@pytest.mark.timeout(600)
 def test_tools_module_runs_without_jax(tmp_path):
     """python -m graphchainer_torch.tools, with jax and the JAX package
     blocked, runs a subcommand end to end."""

@@ -110,6 +110,46 @@ def full_start():
     return out
 
 
+def frag_tl():
+    """align_fragments_tl on tests/test_torch_common.padded_batch(B) for
+    B = 16 and 32, and run_fragments on padded_batch(16), which fits the
+    2-bit read-code format (tests/test_torch_frag.py)."""
+    import jax.numpy as jnp
+    from graphchainer_tpu.align import anchors as JA
+    from graphchainer_tpu.ops import frag_align as JF
+    from test_torch_common import array_record, padded_batch, slice_case
+    from test_torch_frag import NAMES
+    out = {}
+    for B in (16, 32):
+        model, bnc, bi, ss, req, rows, S, bl = padded_batch(B)
+        gx = model.gx
+        r = JF.align_fragments_tl(
+            jnp.asarray(gx.node_eq_cat), jnp.asarray(gx.node_len_cat),
+            jnp.asarray(bnc), jnp.asarray(bi), jnp.asarray(ss),
+            jnp.asarray(req), jnp.asarray(rows), n_slices=S, max_in=4,
+            band_level=jnp.asarray(bl),
+            n_levels=JA.level_bucket(bl, bnc.shape[1]))
+        out[str(B)] = {name: array_record(np.asarray(getattr(r, name)))
+                       for name in NAMES}
+    model, bnc, bi, ss, req, rows, S, bl = padded_batch(16)
+    jgx = JA.GraphTensors.build(slice_case()[0])
+    r = JA.run_fragments(jgx, bnc, bi, ss, req, rows, S, 4, band_level=bl)
+    out["code0"] = {name: array_record(np.asarray(getattr(r, name)))
+                    for name in NAMES}
+    return out
+
+
+def ga_rescue():
+    """ChainerModel.align_batch at the default config on the dense DAG of
+    tests/test_torch_ga.py with its unplaceable fourth read."""
+    from graphchainer_tpu.graph.mpc import build_mpc
+    from graphchainer_tpu.models import chainer as JC
+    from test_torch_ga import ga_record, rescue_case
+    g, index, reads = rescue_case()
+    return [ga_record(a) for a in
+            JC.ChainerModel(g, build_mpc(g), index).align_batch(reads)]
+
+
 def optimal_model():
     from graphchainer_tpu.models import optimal as JOPT
     from test_torch_common import aln_record
@@ -214,9 +254,10 @@ def scale_mix():
 
 
 FIXTURES = {f.__name__: f for f in (
-    seedless_scan, seedless_model, seedless_cli, full_start, optimal_model,
-    optimal_cli, polish_any_band, polish_cli, seeds_model, seeds_cli,
-    slice_model, fusion_finder, scale_mix_small, scale_mix)}
+    seedless_scan, seedless_model, seedless_cli, full_start, frag_tl,
+    ga_rescue, optimal_model, optimal_cli, polish_any_band, polish_cli,
+    seeds_model, seeds_cli, slice_model, fusion_finder, scale_mix_small,
+    scale_mix)}
 
 
 def record(name: str) -> dict:
